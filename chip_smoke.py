@@ -4,24 +4,32 @@ Phases, each failing the run (non-zero exit) if its check fails:
 
 1. card: needs torch.cuda; prints the card's name and power limit;
 2. build: compiles the FFTLog core kernel (csrc/fftlog_core.cu) from the
-   sources in this checkout, and times the build;
+   sources in this checkout, times the build, and fails if ptxas reports a
+   spill in any of its template instantiations (one per padded length);
 3. kernel against plain: the kernel against its plain torch.fft version on
-   the card, forward and backward, at the TophatVariance (4096, 1024 -> 2048),
-   headline PowerToCorrelation (40 000, 1024 -> 2048) and nparallel = 3
-   multipole shapes, bar max|d| / max|ref| <= 1e-12; and the analytic
-   Gaussian P(k) -> xi(s) transform through the kernel;
+   the card, forward and backward, bar max|d| / max|ref| <= 1e-12 in every
+   row (the kernel packs two rows into one complex FFT, so a bar over the
+   batch could hide one leaking into the other), at the TophatVariance
+   (4096, 1024 -> 2048), headline PowerToCorrelation (40 000, 1024 -> 2048)
+   and nparallel = 3 multipole shapes, odd row counts (4097 rows; 3 x 1001
+   multipole rows), rows at a 1e8 scale ratio, a lowring=False
+   PowerToCorrelation, and random data at every padded length 64 ... 8192;
+   then the analytic Gaussian P(k) -> xi(s) transform through the kernel;
 4. headline: the port's make_pk_to_xi_pipeline_batched at B = 40 000,
    nk = 1024, z = [0], float64 on the card; the kernel's launch count must
    grow, every output must be finite, and the first 32 rows must agree with
    the same pipeline on CPU tensors (xi per row 1e-10 of its max, chi and
    sigma8 rtol 1e-11);
-5. times: headline cosmologies/s, and kernel against plain at both kernel
-   shapes, with CUDA events after a warm-up.
+5. times: the headline with fft_engine='kernel' and with 'torch', in turns,
+   median of 5 each after a warm-up of each; the kernel against plain at
+   both kernel shapes, with CUDA events after a warm-up; and the kernel's
+   achieved device-memory rate at the headline shape (informational).
 
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -35,6 +43,7 @@ N_COMPARE = 32
 KERNEL_BAR = 1e-12
 XI_BAR = 1e-10
 CHI_SIGMA8_RTOL = 1e-11
+HBM_TB_S = 3.35   # H100 SXM device memory, NVIDIA's data sheet
 
 
 def check(ok, message):
@@ -43,7 +52,8 @@ def check(ok, message):
 
 
 def rel_err(got, ref):
-    return ((got - ref).abs().max() / ref.abs().max()).item()
+    """max|got - ref| / max|ref| over each row, the worst row."""
+    return ((got - ref).abs().amax(dim=-1) / ref.abs().amax(dim=-1)).max().item()
 
 
 def pk_like(k, amplitude, tilt):
@@ -82,26 +92,56 @@ def main():
     print(f'build: {time.perf_counter() - t0:.2f} s ({"compiled" if log is not None else "cached"}) {lib_path}')
     if log:
         print(log.strip())
+        entries = log.count('Compiling entry function')
+        spills = [int(v) for v in re.findall(r'(\d+) bytes spill (?:stores|loads)', log)]
+        print(f'ptxas: {entries} entry functions, spill bytes {sum(spills)}', flush=True)
+        check(entries == fftlog_kernel.MAX_LOG2N - fftlog_kernel.MIN_LOG2N + 1,
+              'the build does not hold one kernel per padded length')
+        check(not any(spills), 'ptxas reports register spills')
 
     # 3. kernel against plain, on the setup arrays of the real transforms
     rng = np.random.default_rng(0)
     k = np.geomspace(1e-5, 1e2, NK)
     k_dev = torch.from_numpy(k).to(dev)
-    cases = {
-        'TophatVariance (4096, 1024 -> 2048)': (TophatVariance(k), 4096),
-        f'PowerToCorrelation ({B}, 1024 -> 2048)': (PowerToCorrelation(k), B),
-        'PowerToCorrelation ell=(0, 2, 4) (3 x 1000, 1024 -> 2048)': (PowerToCorrelation(k, ell=[0, 2, 4]), 3000),
-    }
-    timed = {}
-    max_abs_err = 0.0
-    for label, (transform, rows) in cases.items():
+
+    def transform_case(transform, rows, ratio=1.0):
         arrays = transform._arrays(dev)
         args = (arrays['padded_u'], arrays['padded_prefactor'], arrays['padded_postfactor'],
                 transform.padded_size_in_left, transform.padded_size_out_left)
-        amplitude = torch.from_numpy(rng.uniform(0.5, 2.0, rows)).to(dev)
+        amplitude = rng.uniform(0.5, 2.0, rows)
+        amplitude[1::2] *= ratio
         tilt = torch.from_numpy(rng.uniform(0.9, 1.0, rows)).to(dev)
-        x = pk_like(k_dev, amplitude, tilt).contiguous()
+        return pk_like(k_dev, torch.from_numpy(amplitude).to(dev), tilt).contiguous(), args
+
+    def random_case(log2n, rows):
+        n = 2 ** log2n
+        size = n // 2
+        u = rng.normal(size=(1, n // 2 + 1)) + 1j * rng.normal(size=(1, n // 2 + 1))
+        x, u, pre, post = [torch.from_numpy(a).to(dev) for a in
+                           (rng.normal(size=(rows, size)), u, rng.normal(size=(1, n)), rng.normal(size=(1, n)))]
+        return x, (u, pre, post, n // 4, n // 4 + 3)
+
+    cases = {
+        'TophatVariance (4096, 1024 -> 2048)': transform_case(TophatVariance(k), 4096),
+        f'PowerToCorrelation ({B}, 1024 -> 2048)': transform_case(PowerToCorrelation(k), B),
+        'PowerToCorrelation ell=(0, 2, 4) (3 x 1000, 1024 -> 2048)':
+            transform_case(PowerToCorrelation(k, ell=[0, 2, 4]), 3000),
+        'PowerToCorrelation (4097, 1024 -> 2048)': transform_case(PowerToCorrelation(k), 4097),
+        'PowerToCorrelation ell=(0, 2, 4) (3 x 1001, 1024 -> 2048)':
+            transform_case(PowerToCorrelation(k, ell=[0, 2, 4]), 3003),
+        'PowerToCorrelation, rows at a 1e8 scale ratio (64, 1024 -> 2048)':
+            transform_case(PowerToCorrelation(k), 64, ratio=1e-8),
+        'PowerToCorrelation lowring=False (4096, 1024 -> 2048)':
+            transform_case(PowerToCorrelation(k, lowring=False), 4096),
+    }
+    for log2n in range(fftlog_kernel.MIN_LOG2N, fftlog_kernel.MAX_LOG2N + 1):
+        cases[f'random (257, {2 ** (log2n - 1)} -> {2 ** log2n})'] = random_case(log2n, 257)
+    timed = {}
+    max_abs_err = 0.0
+    for label, (x, args) in cases.items():
+        fftlog_kernel.launches = 0
         got = fftlog_kernel.fftlog_core(x, *args)
+        check(fftlog_kernel.launches == 1, f'one forward call at {label} is not one launch')
         ref = fftlog_kernel.fftlog_core_torch(x, *args)
         grad_out = torch.from_numpy(rng.normal(size=tuple(x.shape))).to(dev)
         xk = x.clone().requires_grad_(True)
@@ -111,9 +151,10 @@ def main():
         torch.cuda.synchronize()
         fwd, bwd = rel_err(got, ref), rel_err(grad_kernel, grad_plain)
         max_abs_err = max(max_abs_err, (got - ref).abs().max().item(), (grad_kernel - grad_plain).abs().max().item())
-        print(f'kernel vs plain, {label}: forward {fwd:.3e}, backward {bwd:.3e} (bar {KERNEL_BAR:g})', flush=True)
+        print(f'kernel vs plain, {label}: forward {fwd:.3e}, backward {bwd:.3e} per row (bar {KERNEL_BAR:g})',
+              flush=True)
         check(fwd <= KERNEL_BAR and bwd <= KERNEL_BAR, f'kernel disagrees with plain at {label}')
-        if rows in (4096, B):
+        if label.startswith(('TophatVariance (4096', f'PowerToCorrelation ({B}')):
             timed[label] = (x, args)
 
     # analytic: xi(s) = sqrt(pi/2) / (2 pi^2) exp(-s^2/2) for P(k) = exp(-k^2/2)
@@ -155,16 +196,23 @@ def main():
           'card and CPU disagree on the headline')
 
     # 5. times
-    walls = []
+    engines = {engine: make_pk_to_xi_pipeline_batched(nk=NK, z=[0.0], fft_engine=engine)[0]
+               for engine in ('kernel', 'torch')}
+    walls = {name: [] for name in engines}
+    for fun in engines.values():
+        fun(*params_dev)
     for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(*params_dev)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    wall = float(np.median(walls))
-    print(f'headline rate: {B / wall:.1f} cosmologies/s (median of 5 runs, {wall * 1e3:.3f} ms per batch of {B}) '
-          f'on {card}', flush=True)
+        for name, fun in engines.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fun(*params_dev)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    wall = {name: float(np.median(w)) for name, w in walls.items()}
+    print(f'headline rate: {B / wall["kernel"]:.1f} cosmologies/s (median of 5 runs, {wall["kernel"] * 1e3:.3f} ms '
+          f'per batch of {B}) on {card}', flush=True)
+    print(f"headline A/B, median of 5 in turns: fft_engine='kernel' {wall['kernel'] * 1e3:.3f} ms, "
+          f"fft_engine='torch' {wall['torch'] * 1e3:.3f} ms per batch of {B} on {card}", flush=True)
     times = {}
     for label, (x, args) in timed.items():
         kernel_ms = plain_ms = 0.0
@@ -180,6 +228,9 @@ def main():
         print(f'time, {label}: kernel {kernel_ms:.4f} ms, plain torch.fft {plain_ms:.4f} ms on {card}', flush=True)
 
     kernel_ms, plain_ms = times[f'PowerToCorrelation ({B}, 1024 -> 2048)']
+    gbytes = 2 * B * NK * 8 / 1e9
+    print(f'informational: the kernel moves {gbytes:.4f} GB at the headline shape, {gbytes / kernel_ms:.3f} TB/s, '
+          f'{gbytes / kernel_ms / HBM_TB_S:.1%} of {HBM_TB_S} TB/s', flush=True)
     print(json.dumps({'kernels': [{
         'name': 'fftlog_core', 'route': 'cuda', 'source': 'cosmoprimo_tpu_torch/csrc/fftlog_core.cu',
         'replaces': 'cosmoprimo_tpu/ops/pallas_fft.py:244', 'launches': launches,

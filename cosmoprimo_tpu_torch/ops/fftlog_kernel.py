@@ -11,7 +11,9 @@ This is the contract of ``cosmoprimo_tpu/ops/pallas_fft.py::fftlog_pallas``
 (exactly ``fftlog_pair_reference`` there) with the zero padding, the
 prefactor and the crop fused in. :func:`fftlog_core` runs the CUDA kernel of
 ``csrc/fftlog_core.cu`` for CUDA tensors and :func:`fftlog_core_torch` for CPU
-tensors.
+tensors. The kernel transforms rows ``r`` and ``r + nparallel``, which share
+``u``, in one complex FFT; tests/test_torch_fftlog_packing.py holds that
+algebra to this contract on the CPU.
 
 The map ``f -> irfft(conj(rfft(f) * u))`` is a real symmetric linear
 operator (its matrix depends on j + m only), so the vector-Jacobian product

@@ -6,9 +6,14 @@ them without the conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda
 
-Bar: max|kernel - plain| / max|plain| <= 1e-12, forward and backward; both
-are float64 FFTs of the same data in another order of operations.
+Bar: max|kernel - plain| / max|plain| <= 1e-12 in every row, forward and
+backward; both are float64 FFTs of the same data in another order of
+operations. The bar is per row because the kernel transforms two rows in one
+complex FFT: a bar over the whole batch would hide one row leaking into its
+partner.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -28,7 +33,8 @@ def cuda_device():
 
 
 def norm_err(got, ref):
-    return ((got - ref).abs().max() / ref.abs().max()).item()
+    """max|got - ref| / max|ref| over each row, the worst row."""
+    return ((got - ref).abs().amax(dim=-1) / ref.abs().amax(dim=-1)).max().item()
 
 
 def random_core_args(rng, rows, size, n, nparallel, device):
@@ -40,7 +46,12 @@ def random_core_args(rng, rows, size, n, nparallel, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize('rows,size,n,nparallel,in_left,out_left',
                          [(40000, 1024, 2048, 1, 512, 512), (30, 512, 2048, 3, 0, 0), (64, 4000, 4096, 1, 48, 48),
-                          (16, 8192, 8192, 2, 0, 0), (8, 40, 64, 1, 12, 12)])
+                          (16, 8192, 8192, 2, 0, 0), (8, 40, 64, 1, 12, 12),
+                          # odd row counts: the last block of each p has one row
+                          (4097, 1024, 2048, 1, 512, 512), (3003, 1024, 2048, 3, 512, 512),
+                          # the other padded lengths, one template instantiation each
+                          (33, 100, 128, 1, 10, 18), (31, 200, 256, 1, 0, 56), (6, 300, 512, 2, 100, 112),
+                          (101, 1000, 1024, 1, 24, 0)])
 def test_fftlog_core_against_plain(cuda_device, rows, size, n, nparallel, in_left, out_left):
     rng = np.random.default_rng(rows)
     x, u, pre, post = random_core_args(rng, rows, size, n, nparallel, cuda_device)
@@ -59,7 +70,40 @@ def test_fftlog_core_against_plain(cuda_device, rows, size, n, nparallel, in_lef
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('transform', [PowerToCorrelation, TophatVariance])
+@pytest.mark.parametrize('ratio', [1e-8, 1e8])
+def test_fftlog_core_pair_scale_ratio(cuda_device, ratio):
+    """Two rows of one complex FFT at a 1e8 scale ratio: the small one must
+    not pick up the large one's round-off."""
+    rng = np.random.default_rng(11)
+    x, u, pre, post = random_core_args(rng, 64, 1024, 2048, 1, cuda_device)
+    x[1::2] *= ratio
+    got = fftlog_kernel.fftlog_core(x, u, pre, post, 512, 512)
+    assert norm_err(got, fftlog_kernel.fftlog_core_torch(x, u, pre, post, 512, 512)) <= BAR
+    grad_out = torch.from_numpy(rng.normal(size=(64, 1024))).to(cuda_device)
+    grad_out[::2] *= ratio
+    xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    gk, = torch.autograd.grad(fftlog_kernel.fftlog_core(xk, u, pre, post, 512, 512), xk, grad_out)
+    gp, = torch.autograd.grad(fftlog_kernel.fftlog_core_torch(xp, u, pre, post, 512, 512), xp, grad_out)
+    assert norm_err(gk, gp) <= BAR
+
+
+@pytest.mark.cuda
+def test_fftlog_core_nan_row_keeps_partner(cuda_device):
+    """A row with a NaN gives a NaN row, as in the plain version, and the
+    row it shares a complex FFT with stays right."""
+    rng = np.random.default_rng(12)
+    x, u, pre, post = random_core_args(rng, 8, 1024, 2048, 1, cuda_device)
+    x[3, 100] = float('nan')
+    got = fftlog_kernel.fftlog_core(x, u, pre, post, 512, 512)
+    ref = fftlog_kernel.fftlog_core_torch(x, u, pre, post, 512, 512)
+    assert bool(torch.isnan(got[3]).all()) and bool(torch.isnan(ref[3]).all())
+    keep = [0, 1, 2, 4, 5, 6, 7]
+    assert norm_err(got[keep], ref[keep]) <= BAR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('transform', [PowerToCorrelation, TophatVariance,
+                                       functools.partial(PowerToCorrelation, lowring=False)])
 def test_transform_on_cuda_against_cpu(cuda_device, transform):
     """The 'auto' engine takes the kernel on the card and torch.fft on the
     CPU (which the JAX package holds to 1e-12 in test_torch_fftlog.py)."""
