@@ -13,19 +13,38 @@ Phases, each failing the run (non-zero exit) if its check fails:
    (4096, 1024 -> 2048), headline PowerToCorrelation (40 000, 1024 -> 2048)
    and nparallel = 3 multipole shapes, odd row counts (4097 rows; 3 x 1001
    multipole rows), rows at a 1e8 scale ratio, a lowring=False
-   PowerToCorrelation, and random data at every padded length 64 ... 8192;
+   PowerToCorrelation, the HMcode pipeline's PowerToCorrelation (4096,
+   384 -> 1024), the sigma8 input path's TophatVariance on its 1e-7..1e2
+   grid (4096, 1024 -> 2048), and random data at every padded length
+   64 ... 8192;
    then the analytic Gaussian P(k) -> xi(s) transform through the kernel;
+   then forward mode (torch.func.jvp through the kernel's jvp rule against
+   jvp through the plain version, per row, one launch for the primal and
+   one for the tangent) at the headline and ell = (0, 2, 4) shapes, and
+   complex multipoles (ell = 0..3, complex=True: two launches, complex128)
+   against the plain version, per row;
 4. headline: the port's make_pk_to_xi_pipeline_batched at B = 40 000,
    nk = 1024, z = [0], float64 on the card; the kernel's launch count must
    grow, every output must be finite, and the first 32 rows must agree with
    the same pipeline on CPU tensors (xi per row 1e-10 of its max, chi and
    sigma8 rtol 1e-11);
-5. times: the headline with fft_engine='kernel' and with 'torch', in turns,
+5. halofit: the pipeline with non_linear='halofit' at B = 16 384,
+   nk = 1024, z = [0], with the same checks as the headline and its wall
+   time (median of 5 after a warm-up);
+6. HMcode: non_linear='mead' at B = 4096, nk = 384, z = [0], the same
+   checks and timing; and 'mead2020_feedback' at the same size, checked
+   against the CPU on 32 rows;
+7. sigma8 input: Cosmology(sigma8=..., omega_cdm=...) at B = 4096: its
+   TophatVariance launches the kernel, sigma8_m returns the input at rtol
+   1e-10, and P(k) on the first 32 rows agrees with the CPU at rtol 1e-11;
+8. times: the headline with fft_engine='kernel' and with 'torch', in turns,
    median of 5 each after a warm-up of each; the kernel against plain at
    both kernel shapes, with CUDA events after a warm-up; and the kernel's
    achieved device-memory rate at the headline shape (informational).
 
-The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
+The kernel's launches in the main-path runs of phases 4-7 are summed into
+the "kernels" line. The last line is {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 
 import json
@@ -39,10 +58,16 @@ import torch
 
 B = 40000
 NK = 1024
+B_HALOFIT = 16384
+B_HMCODE = 4096
+NK_HMCODE = 384
+B_SIGMA8 = 4096
 N_COMPARE = 32
 KERNEL_BAR = 1e-12
 XI_BAR = 1e-10
 CHI_SIGMA8_RTOL = 1e-11
+SIGMA8_INPUT_RTOL = 1e-10
+DEVICE = 'cuda'
 HBM_TB_S = 3.35   # H100 SXM device memory, NVIDIA's data sheet
 
 
@@ -73,19 +98,144 @@ def cuda_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def wall_ms(fn, reps=5):
+    """Median host wall time of ``fn`` ending in a synchronize, after a
+    warm-up call."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls)) * 1e3
+
+
+def cosmo_params(rng, n):
+    """(omega_cdm, omega_b, h, n_s, logA) drawn as bench.py draws them."""
+    return (rng.uniform(0.11, 0.13, n), rng.uniform(0.021, 0.023, n), rng.uniform(0.65, 0.70, n),
+            rng.uniform(0.94, 0.98, n), rng.uniform(2.9, 3.1, n))
+
+
+def run_pipeline(label, fn, params, nk, fftlog_kernel, card, timed=True):
+    """Drive a pipeline once on the card with the kernel's launch count set
+    to 0, check its outputs and its first N_COMPARE rows against the same
+    pipeline on CPU tensors, and time it; returns the launches."""
+    n = len(params[0])
+    params_dev = [torch.from_numpy(p).to(DEVICE) for p in params]
+    torch.cuda.reset_peak_memory_stats()
+    fftlog_kernel.launches = 0
+    xi, chi, sigma8 = fn(*params_dev)
+    torch.cuda.synchronize()
+    launches = fftlog_kernel.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f'{label}: B={n}, nk={nk}, xi {tuple(xi.shape)}, chi {tuple(chi.shape)}, sigma8 {tuple(sigma8.shape)}, '
+          f'kernel launches {launches}, peak memory {peak_gb:.2f} GB', flush=True)
+    check(launches > 0, f'{label} did not launch the FFTLog kernel')
+    check(tuple(xi.shape) == (n, 1, nk) and tuple(chi.shape) == (n, 3) and tuple(sigma8.shape) == (n,),
+          f'{label} output shapes are wrong')
+    check(all(bool(torch.isfinite(t).all()) for t in (xi, chi, sigma8)), f'{label} outputs are not all finite')
+    xi_cpu, chi_cpu, sigma8_cpu = fn(*[torch.from_numpy(p[:N_COMPARE]) for p in params])
+    xi_dev = xi[:N_COMPARE].cpu()
+    xi_err = ((xi_dev - xi_cpu).abs().amax(dim=-1) / xi_cpu.abs().amax(dim=-1)).max().item()
+    chi_err = (chi[:N_COMPARE].cpu() / chi_cpu - 1).abs().max().item()
+    sigma8_err = (sigma8[:N_COMPARE].cpu() / sigma8_cpu - 1).abs().max().item()
+    print(f'{label}, card vs CPU, first {N_COMPARE} rows: xi {xi_err:.3e} (bar {XI_BAR:g}), chi {chi_err:.3e}, '
+          f'sigma8 {sigma8_err:.3e} (bar {CHI_SIGMA8_RTOL:g}); sigma8 range [{sigma8.min().item():.4f}, '
+          f'{sigma8.max().item():.4f}]', flush=True)
+    check(xi_err <= XI_BAR and chi_err <= CHI_SIGMA8_RTOL and sigma8_err <= CHI_SIGMA8_RTOL,
+          f'card and CPU disagree on {label}')
+    if timed:
+        wall = wall_ms(lambda: fn(*params_dev))
+        print(f'{label} wall: {wall:.3f} ms per batch of {n} (median of 5 after a warm-up), '
+              f'{n / wall * 1e3:.1f} cosmologies/s on {card}', flush=True)
+    return launches
+
+
+def forward_mode_and_complex(fftlog_kernel, transform_case, k, PowerToCorrelation):
+    """Phase 3, second part: jvp and complex multipoles through the kernel
+    against the plain version; returns the largest absolute difference."""
+    max_abs_err = 0.0
+    lnk = torch.log(torch.from_numpy(k).to(DEVICE) / 0.1)
+    for label, transform, rows in ((f'PowerToCorrelation ({B}, 1024 -> 2048)', PowerToCorrelation(k), B),
+                                   ('PowerToCorrelation ell=(0, 2, 4) (3 x 1000, 1024 -> 2048)',
+                                    PowerToCorrelation(k, ell=[0, 2, 4]), 3000)):
+        x, args = transform_case(transform, rows)
+        tangent = x * lnk                                  # d x / d tilt: smooth
+        fftlog_kernel.launches = 0
+        out, jvp = torch.func.jvp(lambda f: fftlog_kernel.fftlog_core(f, *args), (x,), (tangent,))
+        torch.cuda.synchronize()
+        launches = fftlog_kernel.launches
+        check(launches == 2, f'jvp at {label} took {launches} launches, not one for the primal and one for the tangent')
+        out_ref, jvp_ref = torch.func.jvp(lambda f: fftlog_kernel.fftlog_core_torch(f, *args), (x,), (tangent,))
+        torch.cuda.synchronize()
+        fwd, tan = rel_err(out, out_ref), rel_err(jvp, jvp_ref)
+        max_abs_err = max(max_abs_err, (out - out_ref).abs().max().item(), (jvp - jvp_ref).abs().max().item())
+        print(f'forward mode through the kernel, {label}: primal {fwd:.3e}, tangent {tan:.3e} per row '
+              f'(bar {KERNEL_BAR:g}), {launches} launches', flush=True)
+        check(fwd <= KERNEL_BAR and tan <= KERNEL_BAR, f'kernel jvp disagrees with plain at {label}')
+
+    x, _ = transform_case(PowerToCorrelation(k), 4000)
+    x = x.reshape(1000, 4, NK)
+    ells = [0, 1, 2, 3]
+    fftlog_kernel.launches = 0
+    _, got = PowerToCorrelation(k, ell=ells, complex=True)(x)
+    torch.cuda.synchronize()
+    launches = fftlog_kernel.launches
+    _, ref = PowerToCorrelation(k, ell=ells, complex=True, engine='torch')(x)
+    err = rel_err(got, ref)
+    max_abs_err = max(max_abs_err, (got - ref).abs().max().item())
+    print(f'complex multipoles ell=(0, 1, 2, 3) (1000 x 4, 1024 -> 2048): {got.dtype}, {launches} launches, '
+          f'{err:.3e} per row against plain (bar {KERNEL_BAR:g})', flush=True)
+    check(launches == 2 and got.dtype == torch.complex128, 'complex multipoles did not run the kernel twice')
+    check(err <= KERNEL_BAR, 'complex multipoles disagree with plain')
+    return max_abs_err
+
+
+def sigma8_input(fftlog_kernel, Cosmology, rng, card):
+    """Phase 7: Cosmology(sigma8=...) on the card; returns the launches."""
+    s8, omega_cdm = rng.uniform(0.75, 0.85, B_SIGMA8), rng.uniform(0.11, 0.13, B_SIGMA8)
+    kq, zq = np.geomspace(1e-4, 10.0, 64), np.array([0.0, 1.0])
+
+    def run(device, rows):
+        cosmo = Cosmology(sigma8=torch.from_numpy(s8[rows]).to(device),
+                          omega_cdm=torch.from_numpy(omega_cdm[rows]).to(device), engine='eisenstein_hu')
+        fo = cosmo.get_fourier()
+        return fo.sigma8_m, fo.pk_interpolator()(torch.from_numpy(kq).to(device), torch.from_numpy(zq).to(device))
+
+    fftlog_kernel.launches = 0
+    sigma8_m, pk = run(DEVICE, slice(None))
+    torch.cuda.synchronize()
+    launches = fftlog_kernel.launches
+    s8_err = np.abs(sigma8_m.cpu().numpy() / s8 - 1).max()
+    _, pk_cpu = run('cpu', slice(N_COMPARE))
+    pk_err = (pk[:N_COMPARE].cpu() / pk_cpu - 1).abs().max().item()
+    print(f'sigma8 input: B={B_SIGMA8}, kernel launches {launches}, sigma8_m against the input {s8_err:.3e} '
+          f'(bar {SIGMA8_INPUT_RTOL:g}), P(k) card vs CPU on {N_COMPARE} rows {pk_err:.3e} '
+          f'(bar {CHI_SIGMA8_RTOL:g})', flush=True)
+    check(launches > 0, 'the sigma8 input path did not launch the FFTLog kernel')
+    check(bool(torch.isfinite(pk).all()), 'sigma8 input P(k) is not finite')
+    check(s8_err <= SIGMA8_INPUT_RTOL and pk_err <= CHI_SIGMA8_RTOL, 'sigma8 input path is wrong')
+    wall = wall_ms(lambda: run(DEVICE, slice(None)))
+    print(f'sigma8 input wall: {wall:.3f} ms per batch of {B_SIGMA8} (Cosmology, sigma8_m and P(k); median of 5) '
+          f'on {card}', flush=True)
+    return launches
+
+
 def main():
     # 1. card
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda is not available', file=sys.stderr)
         return 1
-    from cosmoprimo_tpu_torch import PowerToCorrelation, TophatVariance, make_pk_to_xi_pipeline_batched
+    from cosmoprimo_tpu_torch import Cosmology, PowerToCorrelation, TophatVariance, make_pk_to_xi_pipeline_batched
+    from cosmoprimo_tpu_torch.interpolator import _tophat_variance
     from cosmoprimo_tpu_torch.ops import fftlog_kernel
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f'card: {card}', flush=True)
-    dev = torch.device('cuda')
+    dev = torch.device(DEVICE)
     print(f'torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}', flush=True)
-
     # 2. build
     t0 = time.perf_counter()
     lib_path, log = fftlog_kernel.build()
@@ -103,15 +253,19 @@ def main():
     rng = np.random.default_rng(0)
     k = np.geomspace(1e-5, 1e2, NK)
     k_dev = torch.from_numpy(k).to(dev)
+    # the grids of the HMcode pipeline's PowerToCorrelation and of the
+    # sigma8 input path's TophatVariance (integrate_sigma_r2)
+    k_hmcode = np.geomspace(1e-5, 1e2, NK_HMCODE)
+    tophat_sigma8, k_sigma8 = _tophat_variance(1e-7, 1e2, 1024, dev)
 
-    def transform_case(transform, rows, ratio=1.0):
+    def transform_case(transform, rows, ratio=1.0, k_in=k_dev):
         arrays = transform._arrays(dev)
         args = (arrays['padded_u'], arrays['padded_prefactor'], arrays['padded_postfactor'],
                 transform.padded_size_in_left, transform.padded_size_out_left)
         amplitude = rng.uniform(0.5, 2.0, rows)
         amplitude[1::2] *= ratio
         tilt = torch.from_numpy(rng.uniform(0.9, 1.0, rows)).to(dev)
-        return pk_like(k_dev, torch.from_numpy(amplitude).to(dev), tilt).contiguous(), args
+        return pk_like(k_in, torch.from_numpy(amplitude).to(dev), tilt).contiguous(), args
 
     def random_case(log2n, rows):
         n = 2 ** log2n
@@ -133,6 +287,10 @@ def main():
             transform_case(PowerToCorrelation(k), 64, ratio=1e-8),
         'PowerToCorrelation lowring=False (4096, 1024 -> 2048)':
             transform_case(PowerToCorrelation(k, lowring=False), 4096),
+        f'PowerToCorrelation, HMcode grid ({B_HMCODE}, {NK_HMCODE} -> 1024)':
+            transform_case(PowerToCorrelation(k_hmcode), B_HMCODE, k_in=torch.from_numpy(k_hmcode).to(dev)),
+        f'TophatVariance, sigma8 input grid 1e-7..1e2 ({B_SIGMA8}, 1024 -> 2048)':
+            transform_case(tophat_sigma8, B_SIGMA8, k_in=k_sigma8),
     }
     for log2n in range(fftlog_kernel.MIN_LOG2N, fftlog_kernel.MAX_LOG2N + 1):
         cases[f'random (257, {2 ** (log2n - 1)} -> {2 ** log2n})'] = random_case(log2n, 257)
@@ -167,35 +325,28 @@ def main():
     print(f'Gaussian P(k) -> xi(s) through the kernel: max |d| / (1e-7 + 1e-4 |xi|) = {gauss_err:.3e} (bar 1)')
     check(gauss_err <= 1.0, 'analytic Gaussian transform fails')
 
-    # 4. headline
-    params = (rng.uniform(0.11, 0.13, B), rng.uniform(0.021, 0.023, B), rng.uniform(0.65, 0.70, B),
-              rng.uniform(0.94, 0.98, B), rng.uniform(2.9, 3.1, B))
-    params_dev = [torch.from_numpy(p).to(dev) for p in params]
-    fn, _, s_grid = make_pk_to_xi_pipeline_batched(nk=NK, z=[0.0])
-    torch.cuda.reset_peak_memory_stats()
-    fftlog_kernel.launches = 0
-    xi, chi, sigma8 = fn(*params_dev)
-    torch.cuda.synchronize()
-    launches = fftlog_kernel.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f'headline: B={B}, nk={NK}, xi {tuple(xi.shape)}, chi {tuple(chi.shape)}, sigma8 {tuple(sigma8.shape)}, '
-          f'kernel launches {launches}, peak memory {peak_gb:.2f} GB', flush=True)
-    check(launches > 0, 'the headline did not launch the FFTLog kernel')
-    check(tuple(xi.shape) == (B, 1, NK) and tuple(chi.shape) == (B, 3) and tuple(sigma8.shape) == (B,),
-          'headline output shapes are wrong')
-    check(all(bool(torch.isfinite(t).all()) for t in (xi, chi, sigma8)), 'headline outputs are not all finite')
-    xi_cpu, chi_cpu, sigma8_cpu = fn(*[torch.from_numpy(p[:N_COMPARE]) for p in params])
-    xi_dev = xi[:N_COMPARE].cpu()
-    xi_err = ((xi_dev - xi_cpu).abs().amax(dim=-1) / xi_cpu.abs().amax(dim=-1)).max().item()
-    chi_err = (chi[:N_COMPARE].cpu() / chi_cpu - 1).abs().max().item()
-    sigma8_err = (sigma8[:N_COMPARE].cpu() / sigma8_cpu - 1).abs().max().item()
-    print(f'card vs CPU, first {N_COMPARE} rows: xi {xi_err:.3e} (bar {XI_BAR:g}), chi {chi_err:.3e}, '
-          f'sigma8 {sigma8_err:.3e} (bar {CHI_SIGMA8_RTOL:g}); sigma8 range [{sigma8.min().item():.4f}, '
-          f'{sigma8.max().item():.4f}]', flush=True)
-    check(xi_err <= XI_BAR and chi_err <= CHI_SIGMA8_RTOL and sigma8_err <= CHI_SIGMA8_RTOL,
-          'card and CPU disagree on the headline')
+    max_abs_err = max(max_abs_err, forward_mode_and_complex(fftlog_kernel, transform_case, k, PowerToCorrelation))
 
-    # 5. times
+    # 4. headline
+    params = cosmo_params(rng, B)
+    params_dev = [torch.from_numpy(p).to(dev) for p in params]
+    fn, _, _ = make_pk_to_xi_pipeline_batched(nk=NK, z=[0.0])
+    launches = run_pipeline('headline', fn, params, NK, fftlog_kernel, card, timed=False)
+
+    # 5. halofit
+    fn_halofit, _, _ = make_pk_to_xi_pipeline_batched(nk=NK, z=[0.0], non_linear='halofit')
+    launches += run_pipeline('halofit', fn_halofit, cosmo_params(rng, B_HALOFIT), NK, fftlog_kernel, card)
+
+    # 6. HMcode
+    for non_linear in ('mead', 'mead2020_feedback'):
+        fn_hmcode, _, _ = make_pk_to_xi_pipeline_batched(nk=NK_HMCODE, z=[0.0], non_linear=non_linear)
+        launches += run_pipeline(f'HMcode ({non_linear})', fn_hmcode, cosmo_params(rng, B_HMCODE), NK_HMCODE,
+                                 fftlog_kernel, card, timed=non_linear == 'mead')
+
+    # 7. sigma8 input
+    launches += sigma8_input(fftlog_kernel, Cosmology, rng, card)
+
+    # 8. times
     engines = {engine: make_pk_to_xi_pipeline_batched(nk=NK, z=[0.0], fft_engine=engine)[0]
                for engine in ('kernel', 'torch')}
     walls = {name: [] for name in engines}
@@ -231,6 +382,7 @@ def main():
     gbytes = 2 * B * NK * 8 / 1e9
     print(f'informational: the kernel moves {gbytes:.4f} GB at the headline shape, {gbytes / kernel_ms:.3f} TB/s, '
           f'{gbytes / kernel_ms / HBM_TB_S:.1%} of {HBM_TB_S} TB/s', flush=True)
+
     print(json.dumps({'kernels': [{
         'name': 'fftlog_core', 'route': 'cuda', 'source': 'cosmoprimo_tpu_torch/csrc/fftlog_core.cu',
         'replaces': 'cosmoprimo_tpu/ops/pallas_fft.py:244', 'launches': launches,

@@ -8,6 +8,9 @@ csrc/fftlog_core.cu). This package imports neither JAX nor cosmoprimo_tpu.
 
 from .cosmology import Cosmology, CosmologyError, CosmologyInputError
 from .fftlog import FFTlog, PowerToCorrelation, TophatVariance
-from .pipelines import make_pk_to_xi_pipeline_batched
+from .interpolator import PowerSpectrumInterpolator1D, PowerSpectrumInterpolator2D, integrate_sigma_r2
+from .models.halofit import halofit, halofit_pk_interpolator
+from .models.hmcode import hmcode2020, hmcode_pk_interpolator
+from .pipelines import apply_non_linear, make_pk_to_xi_pipeline_batched
 
 __version__ = '0.1.0'

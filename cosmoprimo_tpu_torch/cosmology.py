@@ -453,6 +453,7 @@ class BaseEngine(ParamsAccessor):
         self._derived = {}
         self._extra_params = dict(extra_params)
         self._sections = {}
+        self._rsigma8 = None
 
     def get_section(self, section):
         section = section.lower()
@@ -470,13 +471,35 @@ class BaseEngine(ParamsAccessor):
             return self._params['A_s']
         return 2.43e-9 * (self['sigma8'] / 0.87659) ** 2
 
-    def _rescale_sigma8(self):
-        """Ratio rescaling the perturbative amplitudes to the input sigma8;
-        1 when the amplitude is given as A_s or logA."""
+    def _get_sigma8_fid(self):
         if 'sigma8' in self._params:
-            raise NotImplementedError('sigma8 as an input needs sigma_rz, which is not ported yet '
-                                      '(ROADMAP.md, queue 1); give A_s or logA')
-        return 1.0
+            return self._params['sigma8']
+        return (self['A_s'] / 2.43e-9) ** 0.5 * 0.87659
+
+    def _rescale_sigma8(self):
+        """Ratio rescaling the perturbative amplitudes so that sigma8 matches
+        the input value; 1 when the amplitude is given as A_s or logA.
+
+        Two passes, as the JAX package: the ratio is set to 1, the Fourier
+        section is dropped and built again on the first-guess amplitude, its
+        sigma8_m gives the ratio, and the section is dropped again so that
+        the next one is built on the rescaled amplitude. A Primordial section
+        built during the first pass sees the ratio 1."""
+        if self._rsigma8 is not None:
+            return self._rsigma8
+        self._rsigma8 = 1.0
+        if 'sigma8' in self._params:
+            self._sections.pop('fourier', None)
+            self._rsigma8 = self._params['sigma8'] / self.get_section('fourier').sigma8_m
+            self._sections.pop('fourier', None)
+        return self._rsigma8
+
+    def clone(self, **params):
+        """A new engine of this class on this engine's compiled parameters,
+        with ``params`` (compiled names, batch tensors) replaced."""
+        cosmo = Cosmology.__new__(Cosmology)
+        cosmo._params = {**self._params, **params}
+        return self.__class__(cosmo, **self._extra_params)
 
 
 for _section in _Sections:

@@ -177,7 +177,8 @@ class FFTlog(object):
     Engines: ``'kernel'`` is the fused CUDA kernel (ops/fftlog_kernel.py;
     on a CPU tensor it runs that kernel's plain version), ``'torch'`` is
     unfused ``torch.fft`` in complex128, and ``'auto'`` means ``'kernel'``
-    for a CUDA tensor and ``'torch'`` for a CPU tensor.
+    for a CUDA tensor and ``'torch'`` for a CPU tensor. Every engine takes a
+    complex postfactor and is differentiable in reverse and forward mode.
     """
 
     def __init__(self, x, kernel, q=0, minfolds=2, lowring=True, xy=1, engine='auto'):
@@ -254,23 +255,39 @@ class FFTlog(object):
         self.padded_postfactor = np.stack(padded_postfactor)
 
     def _arrays(self, device):
-        """Setup arrays as contiguous tensors on ``device``, made once."""
+        """Setup arrays as contiguous tensors on ``device``, made once; a
+        complex postfactor also as its real and imaginary parts."""
         if device not in self._device_arrays:
             def tensor(array):
                 return torch.from_numpy(np.ascontiguousarray(array)).to(device)
-            self._device_arrays[device] = {name: tensor(getattr(self, name)) for name in
-                                           ('padded_u', 'padded_prefactor', 'padded_postfactor', 'y', 'padded_y')}
+            arrays = {name: tensor(getattr(self, name)) for name in
+                      ('padded_u', 'padded_prefactor', 'padded_postfactor', 'y', 'padded_y')}
+            if np.iscomplexobj(self.padded_postfactor):
+                arrays['padded_postfactor_parts'] = (tensor(self.padded_postfactor.real),
+                                                     tensor(self.padded_postfactor.imag))
+            self._device_arrays[device] = arrays
         return self._device_arrays[device]
 
     def __call__(self, fun, extrap=0, keep_padding=False):
         """Transform the tensor ``fun`` whose last axes broadcast against
-        (nparallel, size); returns (y, transformed) on ``fun``'s device."""
+        (nparallel, size); returns (y, transformed) on ``fun``'s device.
+
+        On the ``'kernel'`` engine a complex postfactor (``complex=True``
+        multipoles) runs the kernel twice, with its real and its imaginary
+        part: the kernel writes real rows, and the output is a real row
+        times the postfactor, so the two parts are exact."""
         fun = torch.as_tensor(fun, dtype=torch.float64)
         arrays = self._arrays(fun.device)
         engine = self.engine
         if engine == 'auto':
             engine = 'kernel' if fun.is_cuda else 'torch'
-        core = fftlog_core if engine == 'kernel' else fftlog_core_torch
+        if engine == 'kernel' and 'padded_postfactor_parts' in arrays:
+            def core(x, u, prefactor, postfactor, in_left, out_left):
+                real, imag = (fftlog_core(x, u, prefactor, part, in_left, out_left)
+                              for part in arrays['padded_postfactor_parts'])
+                return torch.complex(real, imag)
+        else:
+            core = fftlog_core if engine == 'kernel' else fftlog_core_torch
         if self.inparallel:
             fun = fun.expand(torch.broadcast_shapes(fun.shape, (self.nparallel, self.size)))
         shape = fun.shape[:-1]

@@ -11,9 +11,11 @@ import numpy as np
 import torch
 
 from .. import constants, utils
-from ..cosmology import BaseEngine, BaseSection, DefaultBackground, register_engine
+from ..cosmology import BaseEngine, BaseSection, CosmologyInputError, DefaultBackground, register_engine
 from ..interpolator import PowerSpectrumInterpolator1D, PowerSpectrumInterpolator2D
 from ..ops import flatarray
+from .halofit import halofit_pk_interpolator
+from .hmcode import HMCODE_NAMES, hmcode_pk_interpolator
 
 
 def compute_eh98_coefficients(engine):
@@ -185,20 +187,50 @@ class Transfer(BaseSection):
 
 
 class Fourier(BaseSection):
-    """Linear power spectra built from transfer x primordial x growth."""
+    """Linear power spectra built from transfer x primordial x growth, and
+    the non-linear ones through halofit and HMcode-2020."""
 
     def __init__(self, engine):
         super().__init__(engine)
         self.pm = engine.get_primordial()
         self.tr = engine.get_transfer()
         self.ba = engine.get_background()
+        self._h = engine['h']
+        self._w0, self._wa = engine['w0_fld'], engine['wa_fld']
+        self._fnu = engine['Omega_ncdm_tot'] / engine['Omega_m']
+        self._non_linear = str(engine['non_linear'])
+        # inputs of the HMcode-2020 transform (models/hmcode.py)
+        self._hm_params = dict(omega_m=engine['Omega_m'] * self._h ** 2, omega_b=engine['Omega_b'] * self._h ** 2,
+                               h=self._h, theta_cmb=engine['T_cmb'] / 2.7, n_s=engine['n_s'], fnu=self._fnu,
+                               Omega_k=engine['Omega_k'], w0_fld=self._w0, wa_fld=self._wa)
+        # the CAMB spelling of the feedback parameter
+        self._logT_AGN = engine._extra_params.get('HMCode_logT_AGN', 7.8)
 
-    def pk_interpolator(self, of='delta_m', non_linear=False):
-        """Linear P(k, z) interpolator for 'delta_m' / 'theta_m' (velocity
-        spectra are rescaled by the growth rate)."""
+    def pk_interpolator(self, of='delta_m', non_linear=False, **kwargs):
+        """P(k, z) interpolator for 'delta_m' / 'theta_m' (velocity spectra
+        are rescaled by the growth rate). ``non_linear`` = 'halofit' (or
+        'takahashi') applies halofit (models/halofit.py); 'mead' (or
+        'hmcode', 'mead2020', 'hmcode2020') HMcode-2020 and
+        'mead2020_feedback' HMcode-2020 with the T_AGN baryon response
+        (models/hmcode.py); True takes the calculation parameter
+        ``non_linear``, or halofit if it is empty. ``kwargs`` (k, z) set the
+        grids of the linear interpolator."""
         if non_linear:
-            raise NotImplementedError('non-linear spectra (halofit, HMcode) are not ported yet '
-                                      '(ROADMAP.md, queue 1, slice 3)')
+            if non_linear is True:
+                non_linear = self._non_linear or 'halofit'
+            if non_linear in ('halofit', 'takahashi'):
+                lin = self.pk_interpolator(of=of, **kwargs)
+                return halofit_pk_interpolator(lin, self.ba, w0=self._w0, wa=self._wa, fnu=self._fnu)
+            if non_linear in HMCODE_NAMES:
+                # EH98 does not distinguish the cold field
+                lin_m = self.pk_interpolator(of='delta_m', **kwargs)
+                hm_params = dict(self._hm_params)
+                if non_linear == 'mead2020_feedback':
+                    hm_params['logT_AGN'] = self._logT_AGN
+                return hmcode_pk_interpolator(lin_m, self.ba, hm_params)
+            raise CosmologyInputError(f'non_linear={non_linear!r} is not supported; '
+                                      "use 'halofit' (Takahashi 2012), 'mead' (HMcode-2020) "
+                                      "or 'mead2020_feedback' (HMcode-2020 + T_AGN baryons)")
         if isinstance(of, str):
             of = (of,)
         of = list(of)
@@ -217,4 +249,17 @@ class Fourier(BaseSection):
             return tr.transfer_k(k) ** 2 * potential_to_density * curvature_to_potential * pm.pk_k(k)
 
         return PowerSpectrumInterpolator2D.from_callable(pk_callable=pk_callable, growth_factor_sq=growth_factor_sq,
-                                                         device=self.device)
+                                                         device=self.device, **kwargs)
+
+    def sigma_rz(self, r, z, of='delta_m', **kwargs):
+        """r.m.s. of the linear field in spheres of radius ``r`` at ``z``:
+        batch + r.shape + z.shape."""
+        return self.pk_interpolator(of=of, **kwargs).sigma_rz(r, z)
+
+    def sigma8_z(self, z, of='delta_m'):
+        return self.sigma_rz(8.0, z, of=of)
+
+    @property
+    def sigma8_m(self):
+        """sigma8 of the linear matter field today, (batch)."""
+        return self.sigma8_z(0.0, of='delta_m')

@@ -1,8 +1,9 @@
-"""Numerical substrate of the port: the parts of cosmoprimo_tpu/ops/ on the
-headline path, and the FFTLog core kernel."""
+"""Numerical substrate of the port: the parts of cosmoprimo_tpu/ops/ that
+the ported pipelines run, and the FFTLog core kernel."""
 
 from .fftlog_kernel import fftlog_core, fftlog_core_torch
-from .misc import exception_or_nan, flatarray
-from .odeint import cumquad_rk4
-from .quadrature import simpson
-from .spline import Interpolator1D, cubic_eval, natural_cubic_coeffs
+from .misc import batch_scalar, exception_or_nan, flatarray
+from .odeint import cumquad_rk4, linear_ode2_magnus
+from .quadrature import simpson, trapezoid_weights
+from .special import sici
+from .spline import Interpolator1D, Interpolator2D, cubic_eval, interp, natural_cubic_coeffs

@@ -156,8 +156,9 @@ def _check(x, u, prefactor, postfactor, in_left, out_left):
     if in_left < 0 or out_left < 0 or in_left + size > n or out_left + size > n:
         raise ValueError(f'windows [{in_left}, +{size}) and [{out_left}, +{size}) must lie in [0, {n})')
     if postfactor.is_complex():
-        raise NotImplementedError('fftlog_core takes a real postfactor only (complex=True multipoles '
-                                  "run on engine='torch')")
+        raise NotImplementedError('fftlog_core takes a real postfactor only: the kernel writes a real row. '
+                                  'FFTlog.__call__ runs a complex postfactor as two calls, on its real and '
+                                  'imaginary parts')
     for name, t, dtype in (('x', x, torch.float64), ('u', u, torch.complex128),
                            ('prefactor', prefactor, torch.float64), ('postfactor', postfactor, torch.float64)):
         if t.dtype != dtype:
@@ -177,12 +178,22 @@ def _core(x, u, prefactor, postfactor, in_left, out_left):
 
 
 class _FFTLogCore(torch.autograd.Function):
+    """The core as a function of ``x`` alone. It is linear in ``x``, so the
+    forward-mode derivative (``jvp``) is the core applied to the tangent, the
+    reverse-mode one (``backward``) the transposed core, and a vmapped call
+    (``vmap``) one call over the vmapped rows folded into the row axis: each
+    of them is one more launch of the same kernel on CUDA tensors."""
 
     @staticmethod
-    def forward(ctx, x, u, prefactor, postfactor, in_left, out_left):
-        ctx.save_for_backward(u, prefactor, postfactor)
-        ctx.windows = (in_left, out_left)
+    def forward(x, u, prefactor, postfactor, in_left, out_left):
         return _core(x, u, prefactor, postfactor, in_left, out_left)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, u, prefactor, postfactor, in_left, out_left = inputs
+        ctx.save_for_backward(u, prefactor, postfactor)
+        ctx.save_for_forward(u, prefactor, postfactor)
+        ctx.windows = (in_left, out_left)
 
     @staticmethod
     def backward(ctx, grad):
@@ -191,11 +202,35 @@ class _FFTLogCore(torch.autograd.Function):
         grad_x = _FFTLogCore.apply(grad.contiguous(), u, postfactor, prefactor, out_left, in_left)
         return grad_x, None, None, None, None, None
 
+    @staticmethod
+    def jvp(ctx, x_tangent, *unused):
+        u, prefactor, postfactor = ctx.saved_tensors
+        return _FFTLogCore.apply(x_tangent.contiguous(), u, prefactor, postfactor, *ctx.windows)
+
+    @staticmethod
+    def vmap(info, in_dims, x, u, prefactor, postfactor, in_left, out_left):
+        if any(dim is not None for dim in in_dims[1:]):
+            raise NotImplementedError('fftlog_core vmaps over x only, not over u, prefactor or postfactor')
+        if in_dims[0] is None:
+            return _FFTLogCore.apply(x, u, prefactor, postfactor, in_left, out_left), None
+        # rows % nparallel == 0, so row v * rows + r keeps r's (u, pre, post)
+        x = x.movedim(in_dims[0], 0)
+        rows = x.reshape(-1, x.shape[-1]).contiguous()
+        out = _FFTLogCore.apply(rows, u, prefactor, postfactor, in_left, out_left)
+        return out.reshape(x.shape), 0
+
 
 def fftlog_core(x, u, prefactor, postfactor, in_left, out_left):
     """Fused FFTLog core (see the module docstring) for ``x`` (rows, size)
     float64, ``u`` (nparallel, n/2 + 1) complex128, ``prefactor`` and
     ``postfactor`` (nparallel, n) float64. CUDA tensors launch the kernel,
-    CPU tensors take :func:`fftlog_core_torch`. Differentiable in ``x``."""
+    CPU tensors take :func:`fftlog_core_torch`. Differentiable in ``x``, in
+    reverse and forward mode, and vmappable over ``x``
+    (``torch.autograd.forward_ad``, ``torch.func.jvp``/``jacfwd``/``vmap``).
+
+    The postfactor must be real: the kernel writes a real row. A complex
+    postfactor (``PowerToCorrelation(complex=True)``) is taken by
+    :meth:`FFTlog.__call__`, which runs this core twice, on its real and its
+    imaginary part; a direct call with one raises NotImplementedError."""
     _check(x, u, prefactor, postfactor, in_left, out_left)
     return _FFTLogCore.apply(x, u, prefactor, postfactor, in_left, out_left)

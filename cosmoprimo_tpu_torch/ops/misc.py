@@ -40,3 +40,9 @@ def exception_or_nan(value, cond, error):
     if np.any(np.asarray(cond)):
         error(value)
     return value
+
+
+def batch_scalar(value, n=1):
+    """A per-cosmology scalar (a float, or a tensor of the batch shape) with
+    ``n`` trailing axes, to broadcast against per-z or per-(z, k) tables."""
+    return value[(...,) + (None,) * n] if isinstance(value, torch.Tensor) else value

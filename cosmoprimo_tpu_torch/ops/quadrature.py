@@ -1,4 +1,4 @@
-"""Composite Simpson quadrature (cosmoprimo_tpu/ops/quadrature.py::simpson)."""
+"""Composite Simpson quadrature and trapezoid weights (cosmoprimo_tpu/ops/quadrature.py)."""
 
 import torch
 
@@ -49,3 +49,11 @@ def simpson(y, x=None, dx=1.0, axis=-1, even='avg'):
             result = result / 2.0
         return result + val
     return basic(y, xb, 0, N - 2)
+
+
+def trapezoid_weights(x):
+    """Composite-trapezoid weights over the (1D, increasing) grid ``x``:
+    int f dx ~= sum w_i f(x_i). Shared by the sigma^2 / sigma_v^2 matmul
+    integrals (models/halofit.py, models/hmcode.py)."""
+    dx = torch.diff(x)
+    return torch.cat([dx[:1] / 2, (dx[:-1] + dx[1:]) / 2, dx[-1:] / 2])

@@ -6,8 +6,12 @@ for TPU parallelism. Here the system is solved by one LU factorisation of
 the (n-2, n-2) matrix, which depends on the knots only, applied to every
 value column at once: the knots are a small static grid (119 nodes on the
 distance table) and the columns are the batch.
+
+Also the batched linear :func:`interp` and the tensor-product
+:class:`Interpolator2D`.
 """
 
+import numpy as np
 import torch
 
 
@@ -99,3 +103,117 @@ class Interpolator1D(object):
         if not self.extrap:
             tmp = torch.where(mask.reshape((-1,) + (1,) * (tmp.dim() - 1)), tmp, torch.nan)
         return tmp.reshape(toret_shape)
+
+
+def interp(x, xp, fp):
+    """Linear interpolation along the last axis with ``jnp.interp``
+    semantics (clamped to the end values outside ``xp``), batched: ``x``
+    (..., m), ``xp`` and ``fp`` (..., n), the leading axes broadcast, so
+    ``xp`` may differ per cosmology. Returns (..., m)."""
+    n = xp.shape[-1]
+    batch = torch.broadcast_shapes(x.shape[:-1], xp.shape[:-1], fp.shape[:-1])
+    x = x.expand(batch + x.shape[-1:]).contiguous()
+    if xp.dim() == 1:
+        i = torch.searchsorted(xp, x, right=True)
+    else:
+        i = torch.searchsorted(xp.expand(batch + (n,)).contiguous(), x, right=True)
+    i = torch.clamp(i, 1, n - 1)
+    xp, fp = xp.expand(batch + (n,)), fp.expand(batch + (n,))
+    x0, x1 = torch.gather(xp, -1, i - 1), torch.gather(xp, -1, i)
+    f0, f1 = torch.gather(fp, -1, i - 1), torch.gather(fp, -1, i)
+    dx = x1 - x0
+    dx0 = torch.abs(dx) <= np.spacing(np.finfo(np.float64).eps)
+    f = torch.where(dx0, f0, f0 + ((x - x0) / torch.where(dx0, 1.0, dx)) * (f1 - f0))
+    f = torch.where(x < xp[..., :1], fp[..., :1], f)
+    return torch.where(x > xp[..., -1:], fp[..., -1:], f)
+
+
+def _cell_cubic(h, dl, dr, f0, f1, m0, m1):
+    """Value of the cubic on one knot cell: width ``h``, distances from the
+    left/right knot ``dl``/``dr``, endpoint values ``f0``/``f1`` and endpoint
+    second derivatives ``m0``/``m1``."""
+    return (m0 * dr**3 / (6 * h) + m1 * dl**3 / (6 * h)
+            + (f0 / h - m0 * h / 6) * dr + (f1 / h - m1 * h / 6) * dl)
+
+
+class Interpolator2D(object):
+    """Tensor-product natural cubic interpolator on the grid (x, y) for
+    ``fun`` (nx, ny, ...), the trailing axes a batch, with optional log10
+    transforms of x, y and fun, and NaN outside the grid unless ``extrap``.
+
+    Every coefficient is solved at construction: ``My`` (second
+    y-derivatives of the data), ``Mx`` (second x-derivatives) and ``Mxy``
+    (the x-spline of ``My``). A call is then evaluation only: with
+    ``grid=True`` the y-splines of (F, Mx) at the y-queries, then the
+    x-spline of those at the x-queries, (nqx, nqy, ...); with ``grid=False``
+    one bicubic cell per (x, y) pair, (nq, ...).
+    """
+
+    def __init__(self, x, y, fun, interp_x='lin', interp_y='lin', interp_fun='lin', extrap=False,
+                 assume_sorted=False):
+        self.interp_x, self.interp_y, self.interp_fun = str(interp_x), str(interp_y), str(interp_fun)
+        fun = torch.as_tensor(fun, dtype=torch.float64)
+        x = torch.as_tensor(x, dtype=torch.float64, device=fun.device)
+        y = torch.as_tensor(y, dtype=torch.float64, device=fun.device)
+        if not assume_sorted:
+            ix, iy = torch.argsort(x), torch.argsort(y)
+            x, y, fun = x[ix], y[iy], fun[ix][:, iy]
+        self.xmin, self.xmax = x[0], x[-1]
+        self.ymin, self.ymax = y[0], y[-1]
+        if self.interp_x == 'log':
+            x = torch.log10(x)
+        if self.interp_y == 'log':
+            y = torch.log10(y)
+        if self.interp_fun == 'log':
+            fun = torch.log10(fun)
+        self.extrap = bool(extrap)
+        self._tx, self._ty, self._tf = x, y, fun
+        zeros = torch.zeros_like(fun)
+        cubic_x, cubic_y = x.shape[0] > 2, y.shape[0] > 2
+        self._My = natural_cubic_coeffs(y, fun.movedim(1, 0)).movedim(0, 1) if cubic_y else zeros
+        self._Mx = natural_cubic_coeffs(x, fun) if cubic_x else zeros
+        self._Mxy = natural_cubic_coeffs(x, self._My) if cubic_x and cubic_y else zeros
+
+    def _eval_pairs(self, tx, ty):
+        nx, ny = self._tx.shape[0], self._ty.shape[0]
+        ix = torch.clamp(torch.searchsorted(self._tx, tx, right=True) - 1, 0, nx - 2)
+        iy = torch.clamp(torch.searchsorted(self._ty, ty, right=True) - 1, 0, ny - 2)
+        bshape = (-1,) + (1,) * (self._tf.dim() - 2)
+
+        def b(t):
+            return t.reshape(bshape)
+
+        hx, hy = b(self._tx[ix + 1] - self._tx[ix]), b(self._ty[iy + 1] - self._ty[iy])
+        dlx, drx = b(tx - self._tx[ix]), b(self._tx[ix + 1] - tx)
+        dly, dry = b(ty - self._ty[iy]), b(self._ty[iy + 1] - ty)
+
+        def row(i):
+            g = _cell_cubic(hy, dly, dry, self._tf[i, iy], self._tf[i, iy + 1], self._My[i, iy], self._My[i, iy + 1])
+            m = _cell_cubic(hy, dly, dry, self._Mx[i, iy], self._Mx[i, iy + 1], self._Mxy[i, iy], self._Mxy[i, iy + 1])
+            return g, m
+
+        g0, m0 = row(ix)
+        g1, m1 = row(ix + 1)
+        return _cell_cubic(hx, dlx, drx, g0, g1, m0, m1)
+
+    def _eval_grid(self, tx, ty):
+        gF = cubic_eval(self._ty, self._tf.movedim(1, 0), self._My.movedim(1, 0), ty)    # (nqy, nx, ...)
+        gM = cubic_eval(self._ty, self._Mx.movedim(1, 0), self._Mxy.movedim(1, 0), ty)   # (nqy, nx, ...)
+        return cubic_eval(self._tx, gF.movedim(0, 1), gM.movedim(0, 1), tx)              # (nqx, nqy, ...)
+
+    def __call__(self, x, y, grid=True):
+        x = torch.as_tensor(x, dtype=torch.float64, device=self._tx.device)
+        y = torch.as_tensor(y, dtype=torch.float64, device=self._tx.device)
+        toret_shape = (x.shape + y.shape) if grid else x.shape
+        x, y = x.reshape(-1), y.reshape(-1)
+        mask_x = (x >= self.xmin) & (x <= self.xmax)
+        mask_y = (y >= self.ymin) & (y <= self.ymax)
+        mask = (mask_x[:, None] & mask_y) if grid else (mask_x & mask_y)
+        tx = torch.log10(x) if self.interp_x == 'log' else x
+        ty = torch.log10(y) if self.interp_y == 'log' else y
+        tmp = self._eval_grid(tx, ty) if grid else self._eval_pairs(tx, ty)
+        if self.interp_fun == 'log':
+            tmp = 10**tmp
+        if not self.extrap:
+            tmp = torch.where(mask.reshape(mask.shape + (1,) * (tmp.dim() - mask.dim())), tmp, torch.nan)
+        return tmp.reshape(toret_shape + tmp.shape[mask.dim():])

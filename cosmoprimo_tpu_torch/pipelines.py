@@ -1,21 +1,53 @@
-"""The batched headline pipeline (cosmoprimo_tpu/pipelines.py::make_pk_to_xi_pipeline_batched)."""
+"""The batched pk -> xi pipeline (cosmoprimo_tpu/pipelines.py::
+make_pk_to_xi_pipeline_batched and apply_non_linear), linear or through
+halofit or HMcode-2020."""
 
 import functools
 
 import numpy as np
 import torch
 
+from . import constants
 from .cosmology import Cosmology
 from .fftlog import PowerToCorrelation
 from .interpolator import kernel_tophat2
+from .models.halofit import _geomspace, halofit
+from .models.hmcode import HMCODE_NAMES, hmcode2020
 from .ops import simpson
 
 
-def make_pk_to_xi_pipeline_batched(nk=1024, kmin=1e-5, kmax=1e2, engine='eisenstein_hu', z=(0.0,), fft_engine='auto'):
+def apply_non_linear(non_linear, cosmo, ba, k, pk_t, z, omega_b, h, n_s, logT_AGN=7.8):
+    """Push the linear P(k, z) table ``pk_t`` (B, nz, nk) through halofit
+    (``non_linear`` = 'halofit', 'takahashi' or True) or HMcode-2020
+    ('mead', 'hmcode', 'mead2020', 'hmcode2020'; 'mead2020_feedback' adds
+    the baryon response at ``logT_AGN``). ``k`` (nk,) and ``z`` (nz,) are
+    tensors on the batch's device. Returns (B, nz, nk)."""
+    if not non_linear:
+        return pk_t
+    w0, wa = cosmo['w0_fld'], cosmo['wa_fld']
+    fnu = cosmo['Omega_ncdm_tot'] / cosmo['Omega_m']
+    if non_linear in ('halofit', 'takahashi', True):
+        return halofit(k, pk_t, ba.Omega_m(z), ba.Omega_de(z), w0[..., None] + wa[..., None] * z / (1.0 + z),
+                       fnu=fnu, Omega_m0=cosmo['Omega_m'])
+    if non_linear in HMCODE_NAMES:
+        a_grid = _geomspace(1e-3, 1.0, 128, k.device)
+        return hmcode2020(k, pk_t, pk_t, ba.Omega_m(z), fnu=fnu, omega_m=cosmo['Omega_m'] * h ** 2,
+                          omega_b=omega_b, h=h, theta_cmb=constants.TCMB / 2.7, ns=n_s,
+                          growth_a=a_grid, growth_g=ba.growth_factor(1.0 / a_grid - 1.0),
+                          growth_z=ba.growth_factor(z), z=z,
+                          logT_AGN=logT_AGN if non_linear == 'mead2020_feedback' else None,
+                          Omega_k0=cosmo['Omega_k'], w0=w0, wa=wa)
+    raise ValueError(f'unknown non_linear {non_linear!r}')
+
+
+def make_pk_to_xi_pipeline_batched(nk=1024, kmin=1e-5, kmax=1e2, engine='eisenstein_hu', z=(0.0,), fft_engine='auto',
+                                   non_linear=False):
     """Build (fn, k, s): ``fn(omega_cdm, omega_b, h, n_s, logA)``, each a (B,)
     float64 tensor, returns on their device
 
-    - xi: (B, nz, nk), the linear correlation function at ``z`` on the grid s;
+    - xi: (B, nz, nk), the correlation function at ``z`` on the grid s, of
+      the linear P(k) or, with ``non_linear`` (see :func:`apply_non_linear`),
+      of the halofit or HMcode-2020 one;
     - chi: (B, 3), the comoving radial distance at z = 0.5, 1, 2 (Mpc/h);
     - sigma8: (B,), from the linear P(k) at z = 0.
 
@@ -45,8 +77,10 @@ def make_pk_to_xi_pipeline_batched(nk=1024, kmin=1e-5, kmax=1e2, engine='eisenst
         # sigma8 is defined on the linear spectrum at z = 0
         pk0 = pkz[..., iz0] if z0_in_grid else pk(k, z0)[..., 0]
         sigma8 = torch.sqrt(simpson(pk0 * w8, x=lnk) / (2.0 * np.pi ** 2))
-        chi = cosmo.get_background().comoving_radial_distance(zq)
-        s, xi = p2c(pkz.transpose(-1, -2))                 # (B, nz, nk): one batched FFTLog
+        ba = cosmo.get_background()
+        pk_t = apply_non_linear(non_linear, cosmo, ba, k, pkz.transpose(-1, -2), zz, omega_b, h, n_s)   # (B, nz, nk)
+        chi = ba.comoving_radial_distance(zq)
+        s, xi = p2c(pk_t)                                   # one batched FFTLog
         return xi, chi, sigma8
 
     return fn, k_np, np.asarray(p2c.y[0])

@@ -1,0 +1,144 @@
+"""Per-stage device profile of the halofit and HMcode pipelines on one CUDA card:
+
+    python3 -m cosmoprimo_tpu_torch.stage_profile
+
+For each stage (set-up, linear P(k), the sigma^2 matmul, halofit's Newton
+block, HMcode's growth ODE, dewiggle and one-halo NFW tensor, the whole
+non-linear transform through ``apply_non_linear``, the FFTLog kernel) it
+prints the device busy ms and kernel launches of one call under
+``torch.profiler`` and the stream ms between CUDA events; then, for each
+pipeline, the device busy time of one profiled call against its wall time
+without the profiler (the device's idle share) and its top kernels. Sizes
+are those of chip_smoke.py: halofit at B = 16 384, nk = 1024, HMcode at
+B = 4096, nk = 384, z = [0]; parameters are drawn from a seed. Informational
+only: it checks nothing, and prints the card's name and power limit.
+"""
+
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from . import Cosmology, PowerToCorrelation, constants, make_pk_to_xi_pipeline_batched
+from .models import halofit, hmcode
+from .pipelines import apply_non_linear
+
+DEVICE = 'cuda'
+SIZES = (('halofit', 'halofit', 16384, 1024), ('HMcode', 'mead', 4096, 384))
+
+
+def cuda_ms(fn, reps=5):
+    """Mean stream ms of ``fn`` between CUDA events, after 3 warm-ups."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn, reps=5):
+    """Median host wall ms of ``fn`` ending in a synchronize, after a warm-up."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls)) * 1e3
+
+
+def profile_events(fn):
+    """Device busy ms, profiled wall ms, kernel kinds, launches and the top
+    kernels of one call of ``fn`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return busy, wall, len(kernels), sum(e.count for e in kernels), [
+        (e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top]
+
+
+def stages(non_linear, n, nk, rng):
+    """The stages of one pipeline as {name: callable}, and its parameters."""
+    params = tuple(torch.from_numpy(p).to(DEVICE) for p in (
+        rng.uniform(0.11, 0.13, n), rng.uniform(0.021, 0.023, n), rng.uniform(0.65, 0.70, n),
+        rng.uniform(0.94, 0.98, n), rng.uniform(2.9, 3.1, n)))
+    omega_cdm, omega_b, h, n_s, logA = params
+    k_np = np.geomspace(1e-5, 1e2, nk)
+    k, z = torch.from_numpy(k_np).to(DEVICE), torch.zeros(1, dtype=torch.float64, device=DEVICE)
+
+    def setup():
+        return Cosmology(omega_cdm=omega_cdm, omega_b=omega_b, h=h, n_s=n_s, logA=logA, engine='eisenstein_hu')
+
+    cosmo = setup()
+    pk, ba = cosmo.get_fourier().pk_interpolator(), cosmo.get_background()
+    pk_t = pk(k, z).transpose(-1, -2)
+    out = {'set-up (Cosmology, sections)': lambda: setup().get_fourier().pk_interpolator(),
+           'linear P(k)': lambda: pk(k, z)}
+    if non_linear == 'halofit':
+        R = halofit._geomspace(1e-3, 1e3, 128, k.device)
+        lnsig2 = torch.log(halofit.sigma_gauss2(k, pk_t, R)).movedim(-1, 0)
+        out['sigma^2 matmul'] = lambda: halofit.sigma_gauss2(k, pk_t, R)
+        out['Newton (spline solve, 12 steps)'] = lambda: halofit._nonlinear_scale(torch.log(R), lnsig2)
+    else:
+        R = halofit._geomspace(5e-4, 5e1, 64, k.device)
+        omega_m = cosmo['Omega_m'] * h ** 2
+        # k r_s and concentrations of the one-halo tensor's shape and range
+        krs = torch.from_numpy(np.geomspace(1e-3, 1e3, 32 * 64).reshape(32, 64)
+                               * rng.uniform(1.0, 2.0, (n, 1, 1, 1))).to(DEVICE)
+        conc = torch.from_numpy(rng.uniform(4.0, 10.0, (n, 1, 1, 64))).to(DEVICE)
+        out['sigma^2 matmul'] = lambda: hmcode.sigma_tophat2(k, pk_t, R)
+        out['growth ODE (Magnus)'] = lambda: hmcode.mead_growth_ratios(z, omega_m / h ** 2)
+        out['dewiggle'] = lambda: hmcode.dewiggle(k, pk_t, h, omega_m, omega_b, constants.TCMB / 2.7, n_s)
+        out[f'one-halo NFW tensor ({n}, 1, 32, 64), sici twice'] = lambda: hmcode.nfw_window(krs, conc)
+    out['non-linear transform, total'] = lambda: apply_non_linear(non_linear, cosmo, ba, k, pk_t, z, omega_b, h, n_s)
+    p2c, pk_nl = PowerToCorrelation(k_np), out['non-linear transform, total']()
+    out['FFTLog (kernel)'] = lambda: p2c(pk_nl)
+    return out, params
+
+
+def main():
+    if not torch.cuda.is_available():
+        print('stage_profile: torch.cuda is not available', file=sys.stderr)
+        return 1
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f'card: {card}', flush=True)
+    rng = np.random.default_rng(2)
+    for label, non_linear, n, nk in SIZES:
+        named, params = stages(non_linear, n, nk, rng)
+        for name, fn in named.items():
+            busy, _, _, launches, _ = profile_events(fn)
+            print(f'stage, {label} B={n} nk={nk}: {name}: device {busy:.4f} ms in {launches} launches '
+                  f'(torch.profiler), stream {cuda_ms(fn):.4f} ms (CUDA events) on {card}', flush=True)
+        fn, _, _ = make_pk_to_xi_pipeline_batched(nk=nk, non_linear=non_linear)
+        wall = wall_ms(lambda: fn(*params))
+        busy, profiled, kinds, launches, top = profile_events(lambda: fn(*params))
+        if busy == 0.0:
+            print(f'profile, {label} pipeline: torch.profiler shows no device time', flush=True)
+            continue
+        print(f'profile, {label} pipeline B={n}: device busy {busy:.3f} ms in {launches} kernel launches '
+              f'({kinds} kinds); wall {wall:.3f} ms without the profiler (idle {1 - busy / wall:.1%}), '
+              f'{profiled:.3f} ms under it; on {card}', flush=True)
+        for name, ms, count in top:
+            print(f'  {ms:9.3f} ms  x{count:<5d} {name}', flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -18,7 +18,7 @@ import cosmoprimo_tpu as jcp  # noqa: E402
 from cosmoprimo_tpu.interpolator import kernel_tophat2 as jkernel_tophat2  # noqa: E402
 from cosmoprimo_tpu.models.eisenstein_hu import compute_eh98_coefficients as jeh98  # noqa: E402
 from cosmoprimo_tpu_torch import Cosmology  # noqa: E402
-from cosmoprimo_tpu_torch.interpolator import kernel_tophat2  # noqa: E402
+from cosmoprimo_tpu_torch.interpolator import integrate_sigma_r2, kernel_tophat2  # noqa: E402
 from cosmoprimo_tpu_torch.models.eisenstein_hu import compute_eh98_coefficients  # noqa: E402
 
 RTOL = 1e-12
@@ -145,10 +145,11 @@ def test_not_ported_yet():
         Cosmology(engine='eisenstein_hu', m_ncdm=0.06)
     with pytest.raises(NotImplementedError, match='slice 4'):
         Cosmology(engine='eisenstein_hu', neutrino_hierarchy='normal', m_ncdm=0.1)
-    with pytest.raises(NotImplementedError, match='sigma_rz'):
-        Cosmology(engine='eisenstein_hu').get_fourier().pk_interpolator()
-    with pytest.raises(NotImplementedError, match='slice 3'):
-        Cosmology(engine='eisenstein_hu', logA=3.0).get_fourier().pk_interpolator(non_linear='halofit')
+    pk = Cosmology(engine='eisenstein_hu', logA=3.0).get_fourier().pk_interpolator()
+    with pytest.raises(NotImplementedError, match='slice 4'):
+        pk.sigma_rz(8.0, 0.0, method='romberg')
+    with pytest.raises(NotImplementedError, match='slice 4'):
+        integrate_sigma_r2(8.0, lambda k: k, method='simpson')
     state = jcp.Cosmology(engine='eisenstein_hu', m_ncdm=0.06).__getstate__()
     with pytest.raises(NotImplementedError, match='slice 4'):
         Cosmology.from_state(state)

@@ -7,7 +7,11 @@ Bars, as max|port - jax| / max|jax|:
   Lanczos loggamma;
 - transforms against the JAX ``jnp.fft`` path: 1e-12;
 - fftlog_core_torch against fftlog_pair_reference: rtol 1e-10, atol 1e-12,
-  the bar of tests/test_fftlog.py::test_pallas_reference_function.
+  the bar of tests/test_fftlog.py::test_pallas_reference_function;
+- complex multipoles and forward-mode derivatives (forward_ad, jvp,
+  jacfwd, vmap) through both engines against the JAX transform, its
+  jax.jvp and jax.jacfwd: 1e-12, as the transforms (the core is linear, so
+  each derivative is one more transform).
 
 The CUDA kernel itself is tested on the card by tests/test_torch_kernels.py.
 """
@@ -88,8 +92,66 @@ def test_multipole_broadcast_and_complex():
     _, got = port(torch.from_numpy(np.tile(pk, (3, 1))))
     _, ref = jref(jnp.asarray(np.tile(pk, (3, 1))))
     assert got.is_complex() and norm_err(got.numpy(), ref) <= BAR
-    with pytest.raises(NotImplementedError):
-        TRANSFORMS['complex'][0](k, engine='kernel')(torch.from_numpy(np.tile(pk, (3, 1))))
+    _, got_kernel = TRANSFORMS['complex'][0](k, engine='kernel')(torch.from_numpy(np.tile(pk, (3, 1))))
+    assert got_kernel.dtype == torch.complex128 and norm_err(got_kernel.numpy(), ref) <= BAR
+    # a direct call of the core takes a real postfactor only
+    arrays = port._arrays(torch.device('cpu'))
+    with pytest.raises(NotImplementedError, match='real postfactor'):
+        fftlog_kernel.fftlog_core(torch.from_numpy(np.tile(pk, (3, 1))), arrays['padded_u'], arrays['padded_prefactor'],
+                                  arrays['padded_postfactor'], port.padded_size_in_left, port.padded_size_out_left)
+
+
+@pytest.mark.parametrize('extrap', [0, 'log'])
+def test_complex_multipoles_kernel_against_jax(extrap):
+    """complex=True through engine='kernel': the core runs on the real and
+    the imaginary part of the postfactor (odd ell give an imaginary row)."""
+    k = np.geomspace(1e-4, 1e1, 512)
+    fun = pk_like(k) * np.random.default_rng(7).uniform(0.5, 2.0, (2, 4, 1))
+    y, got = fftlog.PowerToCorrelation(k, ell=[0, 1, 2, 3], complex=True, engine='kernel')(
+        torch.from_numpy(fun), extrap=extrap)
+    _, ref = jfftlog.PowerToCorrelation(k, ell=[0, 1, 2, 3], complex=True)(jnp.asarray(fun), extrap=extrap)
+    assert got.shape == (2, 4, 512) and got.dtype == torch.complex128
+    assert norm_err(got.numpy(), ref) <= BAR
+    assert np.abs(got.numpy()[:, 1::2].real).max() == 0.0 and np.abs(got.numpy()[:, ::2].imag).max() == 0.0
+
+
+@pytest.mark.parametrize('engine', ['torch', 'kernel'])
+@pytest.mark.parametrize('mode', ['forward_ad', 'jvp', 'jacfwd', 'vmap'])
+def test_forward_mode_against_jax(engine, mode):
+    """Forward-mode derivatives of xi through the FFTLog core's
+    autograd.Function (its jvp and vmap rules) against jax.jvp and
+    jax.jacfwd of the JAX package's transform."""
+    k = np.geomspace(1e-4, 1e2, 256)
+    rng = np.random.default_rng(8)
+    pk = pk_like(k) * rng.uniform(0.5, 2.0, (3, 1))
+    # a smooth tangent (d pk / d tilt): FFTLog of rough rows is round-off bound
+    tangent = pk * np.log(k / 0.1) * rng.uniform(0.5, 2.0, (3, 1))
+    port = fftlog.PowerToCorrelation(k, ell=[0, 2, 4], engine=engine)
+    jfun = jfftlog.PowerToCorrelation(k, ell=[0, 2, 4])
+
+    def xi(fun):
+        return port(fun)[1]
+
+    if mode == 'forward_ad':
+        import torch.autograd.forward_ad as fwad
+        with fwad.dual_level():
+            got = fwad.unpack_dual(xi(fwad.make_dual(torch.from_numpy(pk), torch.from_numpy(tangent)))).tangent
+    elif mode == 'jvp':
+        got = torch.func.jvp(xi, (torch.from_numpy(pk),), (torch.from_numpy(tangent),))[1]
+    elif mode == 'jacfwd':
+        got = torch.func.jacfwd(xi)(torch.from_numpy(pk))
+    else:
+        got = torch.func.vmap(xi)(torch.from_numpy(np.stack([pk, tangent])))
+    if mode == 'jacfwd':
+        ref = jax.jacfwd(lambda f: jfun(f)[1])(jnp.asarray(pk))
+        assert got.shape == ref.shape == (3, 256, 3, 256)
+        assert norm_err(got.numpy(), ref) <= BAR
+    elif mode == 'vmap':
+        ref = [jfun(jnp.asarray(f))[1] for f in (pk, tangent)]
+        assert norm_err(got[0].numpy(), ref[0]) <= BAR and norm_err(got[1].numpy(), ref[1]) <= BAR
+    else:
+        ref = jax.jvp(lambda f: jfun(f)[1], (jnp.asarray(pk),), (jnp.asarray(tangent),))[1]
+        assert norm_err(got.numpy(), ref) <= BAR
 
 
 def test_pad():

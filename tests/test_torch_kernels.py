@@ -6,11 +6,11 @@ them without the conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda
 
-Bar: max|kernel - plain| / max|plain| <= 1e-12 in every row, forward and
-backward; both are float64 FFTs of the same data in another order of
-operations. The bar is per row because the kernel transforms two rows in one
-complex FFT: a bar over the whole batch would hide one row leaking into its
-partner.
+Bar: max|kernel - plain| / max|plain| <= 1e-12 in every row, forward,
+backward and forward mode (jvp, vmap), complex multipoles included; both
+are float64 FFTs of the same data in another order of operations. The bar
+is per row because the kernel transforms two rows in one complex FFT: a bar
+over the whole batch would hide one row leaking into its partner.
 """
 
 import functools
@@ -128,3 +128,46 @@ def test_fftlog_core_rejects(cuda_device):
         fftlog_kernel.fftlog_core(x, u, pre.cpu(), post, 0, 0)
     with pytest.raises(NotImplementedError):
         fftlog_kernel.fftlog_core(x, u, pre, post.to(torch.complex128), 0, 0)
+
+
+def smooth_rows(k, rows, seed):
+    rng = np.random.default_rng(seed)
+    pk = 1e4 * (k / 0.1) ** 0.96 / (1 + (k / 0.1) ** 3) * rng.uniform(0.5, 2.0, (rows, 1))
+    return torch.from_numpy(pk), torch.from_numpy(pk * np.log(k / 0.1) * rng.uniform(0.5, 2.0, (rows, 1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ell,rows', [(0, 4096), ((0, 2, 4), 3 * 1000)])
+def test_forward_mode_on_cuda(cuda_device, ell, rows):
+    """jvp through the kernel (its jvp rule: one more launch for the
+    tangent) and jacfwd-style vmapped tangents (its vmap rule: one launch
+    for all of them) against the plain version, per row."""
+    k = np.geomspace(1e-5, 1e2, 1024)
+    transform = PowerToCorrelation(k, ell=ell, engine='kernel')
+    plain = PowerToCorrelation(k, ell=ell, engine='torch')
+    shape = (rows // 3, 3, 1024) if np.ndim(ell) else (rows, 1024)
+    pk, tangent = (a.reshape(shape).to(cuda_device) for a in smooth_rows(k, rows, rows))
+    launches = fftlog_kernel.launches
+    out, jvp = torch.func.jvp(lambda f: transform(f)[1], (pk,), (tangent,))
+    assert fftlog_kernel.launches == launches + 2
+    out_ref, jvp_ref = torch.func.jvp(lambda f: plain(f)[1], (pk,), (tangent,))
+    assert norm_err(out, out_ref) <= BAR and norm_err(jvp, jvp_ref) <= BAR
+    tangents = torch.stack([tangent, 2.0 * tangent, pk])
+    launches = fftlog_kernel.launches
+    vmapped = torch.func.vmap(lambda t: torch.func.jvp(lambda f: transform(f)[1], (pk,), (t,))[1])(tangents)
+    assert fftlog_kernel.launches == launches + 2
+    assert norm_err(vmapped, torch.stack([jvp_ref, 2.0 * jvp_ref, out_ref])) <= BAR
+
+
+@pytest.mark.cuda
+def test_complex_multipoles_on_cuda(cuda_device):
+    """complex=True on the card: two launches (the real and imaginary
+    parts of the postfactor), complex128 out, against the plain version."""
+    k = np.geomspace(1e-5, 1e2, 1024)
+    pk, _ = smooth_rows(k, 4 * 500, 5)
+    pk = pk.reshape(500, 4, 1024).to(cuda_device)
+    launches = fftlog_kernel.launches
+    _, got = PowerToCorrelation(k, ell=[0, 1, 2, 3], complex=True)(pk)
+    assert fftlog_kernel.launches == launches + 2 and got.dtype == torch.complex128
+    _, ref = PowerToCorrelation(k, ell=[0, 1, 2, 3], complex=True, engine='torch')(pk)
+    assert norm_err(torch.view_as_real(got).flatten(-2), torch.view_as_real(ref).flatten(-2)) <= BAR

@@ -4,7 +4,10 @@ package's on the same inputs, made from a seed with numpy.
 Bar: rtol 1e-12. Both sides compute the same formulas in float64; the
 spline solves differ in method (associative scans against one LU), which
 moves results by a few ulp times the condition number of the diagonally
-dominant spline matrix (< 3).
+dominant spline matrix (< 3). The same bar holds the Magnus solver, whose
+prefix products associate in another order (measured 2e-15), sici
+(measured 1.4e-17 absolute, an atol of 1e-15 where Ci crosses zero),
+interp and Interpolator2D.
 """
 
 import numpy as np
@@ -15,9 +18,11 @@ jax = pytest.importorskip('jax')
 import jax.numpy as jnp  # noqa: E402
 
 from cosmoprimo_tpu.ops.odeint import cumquad_rk4 as jcumquad_rk4  # noqa: E402
+from cosmoprimo_tpu.ops.odeint import linear_ode2_magnus as jmagnus  # noqa: E402
+from cosmoprimo_tpu.ops.special import sici as jsici  # noqa: E402
 from cosmoprimo_tpu.ops import quadrature as jquad  # noqa: E402
 from cosmoprimo_tpu.ops import spline as jspline  # noqa: E402
-from cosmoprimo_tpu_torch.ops import misc, odeint, quadrature, spline  # noqa: E402
+from cosmoprimo_tpu_torch.ops import misc, odeint, quadrature, special, spline  # noqa: E402
 
 RTOL = 1e-12
 
@@ -126,3 +131,66 @@ def test_flatarray_shapes():
 
     assert Section().f(0.5).shape == (2,)
     assert Section().f(np.ones((3, 4))).shape == (2, 3, 4)
+
+
+def test_trapezoid_weights():
+    x = np.sort(np.random.default_rng(3).uniform(0.0, 5.0, 40))
+    np.testing.assert_allclose(quadrature.trapezoid_weights(t(x)).numpy(),
+                               np.asarray(jquad.trapezoid_weights(jnp.asarray(x))), rtol=RTOL)
+
+
+def test_sici():
+    x = np.concatenate([np.geomspace(1e-8, 1e4, 2000), [4.0, 4.0 + 1e-12, 100.0, 100.0 + 1e-10]])
+    for got, ref in zip(special.sici(t(x)), jax.jit(jsici)(x)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL, atol=1e-15)
+
+
+def test_linear_ode2_magnus():
+    """The growth ODE of HMcode's Mead ratios, batched over three parameter
+    sets, against the JAX solver run on each."""
+    eta = np.linspace(np.log(1e-4), 0.0, 64)
+    om = np.array([0.25, 0.3, 0.35])
+
+    def coeffs(xp, e, o):
+        a = xp.exp(e)
+        Om = o * a ** -3 / (o * a ** -3 + 1 - o)
+        return 1.5 * Om - 0.5 * (1 - 3 * (1 - Om)) - 2.0, -0.5 * (1 - 3 * (1 - Om)) - 3.0
+
+    got = odeint.linear_ode2_magnus(lambda e: coeffs(torch, e, t(om)[:, None]), [1.0, 0.0], t(eta)).numpy()
+    assert got.shape == (3, 64, 2)
+    for row, o in zip(got, om):
+        ref = np.asarray(jax.jit(lambda e: jmagnus(lambda ee: coeffs(jnp, ee, o), jnp.array([1.0, 0.0]), e))(eta))
+        np.testing.assert_allclose(row, ref, rtol=RTOL)
+
+
+def test_interp():
+    """jnp.interp semantics, with xp shared and per row, queries outside."""
+    rng = np.random.default_rng(4)
+    xp = np.sort(rng.uniform(0.0, 1.0, (3, 20)), axis=-1)
+    fp = rng.normal(size=(3, 20))
+    x = rng.uniform(-0.2, 1.2, (3, 7))
+    got = spline.interp(t(x), t(xp), t(fp)).numpy()
+    for i in range(3):
+        np.testing.assert_allclose(got[i], np.asarray(jnp.interp(x[i], xp[i], fp[i])), rtol=RTOL)
+    got = spline.interp(t(x), t(xp[0]), t(fp)).numpy()
+    for i in range(3):
+        np.testing.assert_allclose(got[i], np.asarray(jnp.interp(x[i], xp[0], fp[i])), rtol=RTOL)
+
+
+@pytest.mark.parametrize('grid', [True, False])
+@pytest.mark.parametrize('log', [False, True])
+def test_interpolator2d(grid, log):
+    rng = np.random.default_rng(5)
+    x = rng.permutation(np.geomspace(1e-3, 1e2, 40))
+    y = rng.permutation(np.linspace(0.0, 3.0, 7))
+    fun = np.exp(-np.outer(x, 1 + y)[..., None] * np.array([0.1, 0.2])) + 0.5   # (nx, ny, 2): a batch of 2
+    qx = np.geomspace(5e-4, 2e2, 30)
+    qy = np.linspace(-0.1, 3.2, 30) if not grid else np.linspace(-0.1, 3.2, 9)
+    kwargs = dict(interp_x='log', interp_fun='log') if log else {}
+    port = spline.Interpolator2D(t(x), t(y), t(fun), **kwargs)
+    got = port(t(qx), t(qy), grid=grid).numpy()
+    assert got.shape == ((30, 9, 2) if grid else (30, 2))
+    ref = jax.jit(jax.vmap(lambda f: jspline.Interpolator2D(x, y, f, **kwargs)(qx, qy, grid=grid), in_axes=-1,
+                           out_axes=-1))(fun)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=RTOL)

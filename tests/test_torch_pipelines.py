@@ -6,6 +6,13 @@ Bars, tighter than the card-against-CPU bars of chip_smoke.py (xi 1e-10,
 chi and sigma8 1e-11) because the measured agreement allows it: xi
 max|d| / max|xi| per row <= 1e-12 (measured <= 7e-14: the two packages use
 different FFTs and loggamma), chi and sigma8 rtol 1e-13 (measured <= 2.3e-16).
+
+Derivatives of the halofit pipeline's (xi, sigma8) in (omega_cdm, h, logA),
+forward mode (torch.func.jacfwd against jax.jacfwd) and reverse mode
+(against jax.vjp), through engine='kernel': max|d| / max|ref| <= 1e-10 for
+xi (measured <= 5.0e-12: halofit's 1e-13 rounding of C = -y'', see
+tests/test_torch_halofit.py, differentiated) and <= 1e-13 for sigma8
+(measured 2.3e-15).
 """
 
 import functools
@@ -70,6 +77,41 @@ def test_pipeline_gradient_in_logA():
     np.testing.assert_allclose(grad_xi.numpy(), (xi * cot).sum(dim=(1, 2)).detach().numpy(), rtol=1e-12)
     grad_sigma8, = torch.autograd.grad(sigma8.sum(), logA)
     np.testing.assert_allclose(grad_sigma8.numpy(), sigma8.detach().numpy() / 2, rtol=1e-12)
+
+
+DERIV_ARGNUMS = (0, 2, 4)   # omega_cdm, h, logA
+
+
+@functools.lru_cache(maxsize=None)
+def jax_halofit_derivatives():
+    fn, _, _ = jmake(nk=128, z=jnp.asarray([0.0]), non_linear='halofit')
+    args = [jnp.asarray(a) for a in make_args(2, seed=3)]
+    jac = jax.jit(jax.jacfwd(lambda *a: fn(*a)[::2], argnums=DERIV_ARGNUMS))(*args)
+    rng = np.random.default_rng(4)
+    cot = (rng.normal(size=(2, 1, 128)), rng.normal(size=2))
+    grads = jax.jit(lambda *a: jax.vjp(lambda *b: fn(*b)[::2], *a)[1](cot))(*args)
+    return jac, cot, [grads[i] for i in DERIV_ARGNUMS]
+
+
+def test_pipeline_jacfwd_and_vjp_against_jax():
+    """The Fisher contract (tests/test_pipelines.py::test_fisher_jacfwd) on
+    the halofit pipeline, through the FFTLog kernel's autograd.Function:
+    its jvp and vmap rules (forward mode) and its backward (reverse mode)."""
+    jac_ref, cot, grads_ref = jax_halofit_derivatives()
+    fn, _, _ = make_pk_to_xi_pipeline_batched(nk=128, non_linear='halofit', fft_engine='kernel')
+    args = [torch.from_numpy(a) for a in make_args(2, seed=3)]
+    jac = torch.func.jacfwd(lambda *a: fn(*a)[::2], argnums=DERIV_ARGNUMS)(*args)
+    for out, bar in zip(range(2), (1e-10, 1e-13)):
+        for got, ref in zip(jac[out], jac_ref[out]):
+            ref = np.asarray(ref)
+            assert got.shape == ref.shape
+            assert np.abs(got.numpy() - ref).max() <= bar * np.abs(ref).max()
+    leaves = [a.clone().requires_grad_(True) if i in DERIV_ARGNUMS else a for i, a in enumerate(args)]
+    xi, _, sigma8 = fn(*leaves)
+    loss = (xi * torch.from_numpy(cot[0])).sum() + (sigma8 * torch.from_numpy(cot[1])).sum()
+    grads = torch.autograd.grad(loss, [leaves[i] for i in DERIV_ARGNUMS])
+    for got, ref in zip(grads, grads_ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-10)
 
 
 def test_import_without_jax():
