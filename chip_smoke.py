@@ -15,7 +15,9 @@ Phases, each failing the run (non-zero exit) if its check fails:
    multipole rows), rows at a 1e8 scale ratio, a lowring=False
    PowerToCorrelation, the HMcode pipeline's PowerToCorrelation (4096,
    384 -> 1024), the sigma8 input path's TophatVariance on its 1e-7..1e2
-   grid (4096, 1024 -> 2048), and random data at every padded length
+   grid (4096, 1024 -> 2048), the BAO-template path's to_xi (PowerToCorrelation
+   on 1e-7..1e2, 28 672 rows) and to_pk (CorrelationToPower on the s grid
+   that to_xi returns, 4096 rows), and random data at every padded length
    64 ... 8192;
    then the analytic Gaussian P(k) -> xi(s) transform through the kernel;
    then forward mode (torch.func.jvp through the kernel's jvp rule against
@@ -37,12 +39,27 @@ Phases, each failing the run (non-zero exit) if its check fails:
 7. sigma8 input: Cosmology(sigma8=..., omega_cdm=...) at B = 4096: its
    TophatVariance launches the kernel, sigma8_m returns the input at rtol
    1e-10, and P(k) on the first 32 rows agrees with the CPU at rtol 1e-11;
-8. times: the headline with fft_engine='kernel' and with 'torch', in turns,
-   median of 5 each after a warm-up of each; the kernel against plain at
-   both kernel shapes, with CUDA events after a warm-up; and the kernel's
+8. BAO template: B = 4096 cosmologies with one massive neutrino species
+   (m_ncdm ~ U(0.06, 0.12) eV, N_eff = 3.044), EH98, nk = 1024, at the seven
+   DESI DR1 effective redshifts, with the DESI fiducial: the traced
+   PowerSpectrumBAOFilter's (peakaverage, bspline, ehpoly, hinton2017,
+   savgol, ehsavgol), smooth_pk_interpolator().to_xi(), the kirkby2013
+   CorrelationFunctionBAOFilter on the linear to_xi() and to_pk() of its
+   smooth xi; the kernel's launch count must grow, every output must be
+   finite, and the first 32 cosmologies must agree with the same path on
+   CPU tensors (pknow rtol 1e-10, xi 1e-10 of each row's max, rs_drag and
+   chi rtol 1e-11); its wall (one peakaverage filter and to_xi, median of
+   5 after a warm-up); then the host filters wallish2018 and brieden2022 at
+   B = 64, against the CPU at rtol 1e-10, with their walls;
+9. times: the headline with fft_engine='kernel' and with 'torch', in turns,
+   median of 5 each after a warm-up of each; the kernel against plain and
+   against the library's FFT calls (torch.fft.rfft and irfft on the padded
+   rows) at the headline, TophatVariance, to_xi and to_pk shapes, with CUDA
+   events after a warm-up, beside each shape's bound (bytes over 3.35 TB/s
+   against f64 operations over 34 TFLOP/s, the larger); and the kernel's
    achieved device-memory rate at the headline shape (informational).
 
-The kernel's launches in the main-path runs of phases 4-7 are summed into
+The kernel's launches in the main-path runs of phases 4-8 are summed into
 the "kernels" line. The last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
@@ -69,6 +86,13 @@ CHI_SIGMA8_RTOL = 1e-11
 SIGMA8_INPUT_RTOL = 1e-10
 DEVICE = 'cuda'
 HBM_TB_S = 3.35   # H100 SXM device memory, NVIDIA's data sheet
+FP64_TFLOP_S = 34.0   # H100 SXM float64 outside the tensor cores, NVIDIA's data sheet
+B_BAO = 4096
+B_BAO_HOST = 64
+DESI_Z = np.array([0.295, 0.51, 0.706, 0.93, 1.317, 1.491, 2.33])   # DESI DR1 effective redshifts
+BAO_FILTERS = ('peakaverage', 'bspline', 'ehpoly', 'hinton2017', 'savgol', 'ehsavgol')
+BAO_RTOL = 1e-10
+K_FROM_XI = np.geomspace(1e-3, 1.0, 256)
 
 
 def check(ok, message):
@@ -223,12 +247,122 @@ def sigma8_input(fftlog_kernel, Cosmology, rng, card):
     return launches
 
 
+def bao_template(fftlog_kernel, rng, card):
+    """Phase 8: the BAO-template path at full width; returns the launches."""
+    from cosmoprimo_tpu_torch import Cosmology
+    from cosmoprimo_tpu_torch.bao_filter import CorrelationFunctionBAOFilter, PowerSpectrumBAOFilter
+    from cosmoprimo_tpu_torch.fiducial import DESI
+    params = cosmo_params(rng, B_BAO) + (rng.uniform(0.06, 0.12, B_BAO),)
+
+    def cosmology(device, rows):
+        omega_cdm, omega_b, h, n_s, logA, m_ncdm = (torch.from_numpy(p[rows]).to(device) for p in params)
+        cosmo = Cosmology(engine='eisenstein_hu', omega_cdm=omega_cdm, omega_b=omega_b, h=h, n_s=n_s, logA=logA,
+                          m_ncdm=[m_ncdm], N_eff=3.044)
+        return cosmo, DESI(engine='eisenstein_hu', device=device), cosmo.get_fourier().pk_interpolator(z=DESI_Z)
+
+    def run(device, rows, filters=BAO_FILTERS):
+        cosmo, fid, pk = cosmology(device, rows)
+        out = {}
+        for name in filters:
+            filt = PowerSpectrumBAOFilter(pk, engine=name, cosmo=cosmo, cosmo_fid=fid)
+            out[name] = filt.pknow
+            if name == filters[0]:
+                out['xi_smooth'] = filt.smooth_pk_interpolator().to_xi().xi
+        xi_filter = CorrelationFunctionBAOFilter(pk.to_xi(), engine='kirkby2013', cosmo=cosmo, cosmo_fid=fid)
+        out['xinow'] = xi_filter.xinow
+        # where P(k) is more than FFTLog's ringing at the ends of the transform
+        out['pk_from_xi'] = xi_filter.smooth_pk_interpolator()(torch.from_numpy(K_FROM_XI).to(device),
+                                                               torch.from_numpy(DESI_Z).to(device))
+        out['rs_drag'] = cosmo.rs_drag
+        out['chi'] = cosmo.comoving_radial_distance(torch.from_numpy(DESI_Z).to(device))
+        return out
+
+    def compare(got, ref, label):
+        errs = {}
+        for name, value in ref.items():
+            value_dev = got[name][:value.shape[0]].cpu()
+            if name in ('xi_smooth', 'xinow', 'pk_from_xi'):   # 1e-10 of each (cosmology, z) row's max
+                errs[name] = ((value_dev - value).abs().amax(dim=-2) / value.abs().amax(dim=-2)).max().item()
+            else:
+                errs[name] = (value_dev / value - 1).abs().max().item()
+        bars = {name: CHI_SIGMA8_RTOL if name in ('rs_drag', 'chi') else BAO_RTOL for name in errs}
+        print(f'{label}, card vs CPU, first {N_COMPARE} cosmologies: '
+              + ', '.join(f'{name} {err:.3e}' for name, err in errs.items())
+              + f' (bars: rs_drag and chi {CHI_SIGMA8_RTOL:g}, the others {BAO_RTOL:g})', flush=True)
+        check(all(errs[name] <= bars[name] for name in errs), f'card and CPU disagree on {label}')
+
+    torch.cuda.reset_peak_memory_stats()
+    fftlog_kernel.launches = 0
+    out = run(DEVICE, slice(None))
+    torch.cuda.synchronize()
+    launches = fftlog_kernel.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f'BAO template: B={B_BAO} x {DESI_Z.size} z, nk=1024, pknow {tuple(out["ehpoly"].shape)}, '
+          f'xi {tuple(out["xi_smooth"].shape)}, kernel launches {launches}, peak memory {peak_gb:.2f} GB', flush=True)
+    check(launches > 0, 'the BAO-template path did not launch the FFTLog kernel')
+    check(all(tuple(out[name].shape) == (B_BAO, 1024, DESI_Z.size) for name in BAO_FILTERS + ('xi_smooth', 'xinow')),
+          'BAO-template output shapes are wrong')
+    check(all(bool(torch.isfinite(value).all()) for value in out.values()), 'BAO-template outputs are not all finite')
+    compare(out, run('cpu', slice(N_COMPARE)), 'BAO template')
+
+    cosmo, fid, pk = cosmology(DEVICE, slice(None))
+    wall = wall_ms(lambda: PowerSpectrumBAOFilter(pk, engine='peakaverage', cosmo=cosmo, cosmo_fid=fid)
+                   .smooth_pk_interpolator().to_xi())
+    print(f'BAO template wall: {wall:.3f} ms per batch of {B_BAO} x {DESI_Z.size} z (peakaverage filter and to_xi, '
+          f'median of 5 after a warm-up) on {card}', flush=True)
+
+    # the host filters, as in the JAX package, on a smaller batch
+    host = slice(B_BAO_HOST)
+    for name in ('wallish2018', 'brieden2022'):
+        cosmo, fid, pk = cosmology(DEVICE, host)
+        got = PowerSpectrumBAOFilter(pk, engine=name, cosmo=cosmo, cosmo_fid=fid).pknow
+        check(got.device.type == DEVICE and bool(torch.isfinite(got).all()), f'{name} on the card is wrong')
+        cosmo, fid, pk = cosmology('cpu', host)
+        err = (got.cpu() / PowerSpectrumBAOFilter(pk, engine=name, cosmo=cosmo, cosmo_fid=fid).pknow - 1).abs().max().item()
+        cosmo, fid, pk = cosmology(DEVICE, host)
+        wall = wall_ms(lambda: PowerSpectrumBAOFilter(pk, engine=name, cosmo=cosmo, cosmo_fid=fid), reps=3)
+        print(f'{name} (host): B={B_BAO_HOST} x {DESI_Z.size} z, card vs CPU {err:.3e} (bar {BAO_RTOL:g}), wall '
+              f'{wall:.3f} ms (median of 3 after a warm-up) on {card}', flush=True)
+        check(err <= BAO_RTOL, f'{name} on the card and the CPU disagree')
+    return launches
+
+
+def kernel_bound_ms(x, args):
+    """The least time the card could take for one call of the core on ``x``
+    (rows, size) with ``args``: each input read once and the output written
+    once over the device-memory rate, against the f64 operations (a real
+    FFT pair per row, 5 n log2 n, the spectrum product and the pre- and
+    postfactors) over the f64 rate; the larger, and which one."""
+    u, pre, post = args[:3]
+    rows, size = x.shape
+    n = pre.shape[-1]
+    nbytes = 8 * (2 * rows * size + pre.numel() + post.numel()) + 16 * u.numel()
+    ops = rows * (5 * n * np.log2(n) + 6 * (n // 2 + 1) + 2 * n)
+    bytes_ms, ops_ms = nbytes / (HBM_TB_S * 1e12) * 1e3, ops / (FP64_TFLOP_S * 1e12) * 1e3
+    return (bytes_ms, 'bytes') if bytes_ms >= ops_ms else (ops_ms, 'operations')
+
+
+def library_fft_ms(x, args):
+    """CUDA-event time of the library's FFT calls on the same rows: the
+    padded, prefactored rows through torch.fft.rfft, the product with u and
+    torch.fft.irfft (the pad, the conjugate, the postfactor and the crop
+    left out)."""
+    u, pre, post, in_left, _ = args
+    n = pre.shape[-1]
+    f = x.new_zeros((x.shape[0], n))
+    f[:, in_left:in_left + x.shape[1]] = x
+    f = (f.reshape(-1, pre.shape[0], n) * pre).reshape(-1, n)
+    uu = u.repeat(x.shape[0] // u.shape[0], 1)
+    return cuda_ms(lambda: torch.fft.irfft(torch.fft.rfft(f, dim=-1) * uu, n=n, dim=-1))
+
+
 def main():
     # 1. card
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda is not available', file=sys.stderr)
         return 1
-    from cosmoprimo_tpu_torch import Cosmology, PowerToCorrelation, TophatVariance, make_pk_to_xi_pipeline_batched
+    from cosmoprimo_tpu_torch import (Cosmology, CorrelationToPower, PowerToCorrelation, TophatVariance,
+                                      make_pk_to_xi_pipeline_batched)
     from cosmoprimo_tpu_torch.interpolator import _tophat_variance
     from cosmoprimo_tpu_torch.ops import fftlog_kernel
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -257,6 +391,9 @@ def main():
     # sigma8 input path's TophatVariance (integrate_sigma_r2)
     k_hmcode = np.geomspace(1e-5, 1e2, NK_HMCODE)
     tophat_sigma8, k_sigma8 = _tophat_variance(1e-7, 1e2, 1024, dev)
+    # and the BAO-template path's to_xi (the 1e-7..1e2 grid) and to_pk (the s grid that to_xi returns)
+    to_xi = PowerToCorrelation(np.geomspace(1e-7, 1e2, NK))
+    to_pk = CorrelationToPower(np.geomspace(to_xi.y[0, 0], to_xi.y[0, -1], NK))
 
     def transform_case(transform, rows, ratio=1.0, k_in=k_dev):
         arrays = transform._arrays(dev)
@@ -291,6 +428,10 @@ def main():
             transform_case(PowerToCorrelation(k_hmcode), B_HMCODE, k_in=torch.from_numpy(k_hmcode).to(dev)),
         f'TophatVariance, sigma8 input grid 1e-7..1e2 ({B_SIGMA8}, 1024 -> 2048)':
             transform_case(tophat_sigma8, B_SIGMA8, k_in=k_sigma8),
+        f'PowerToCorrelation, to_xi grid 1e-7..1e2 ({B_BAO * DESI_Z.size}, 1024 -> 2048)':
+            transform_case(to_xi, B_BAO * DESI_Z.size, k_in=torch.from_numpy(to_xi.x[0]).to(dev)),
+        f'CorrelationToPower, to_pk on the s grid of to_xi ({B_BAO}, 1024 -> 2048)':
+            transform_case(to_pk, B_BAO, k_in=torch.from_numpy(1.0 / to_pk.x[0]).to(dev)),
     }
     for log2n in range(fftlog_kernel.MIN_LOG2N, fftlog_kernel.MAX_LOG2N + 1):
         cases[f'random (257, {2 ** (log2n - 1)} -> {2 ** log2n})'] = random_case(log2n, 257)
@@ -312,7 +453,8 @@ def main():
         print(f'kernel vs plain, {label}: forward {fwd:.3e}, backward {bwd:.3e} per row (bar {KERNEL_BAR:g})',
               flush=True)
         check(fwd <= KERNEL_BAR and bwd <= KERNEL_BAR, f'kernel disagrees with plain at {label}')
-        if label.startswith(('TophatVariance (4096', f'PowerToCorrelation ({B}')):
+        if label.startswith(('TophatVariance (4096', f'PowerToCorrelation ({B}', 'PowerToCorrelation, to_xi',
+                             'CorrelationToPower')):
             timed[label] = (x, args)
 
     # analytic: xi(s) = sqrt(pi/2) / (2 pi^2) exp(-s^2/2) for P(k) = exp(-k^2/2)
@@ -346,7 +488,10 @@ def main():
     # 7. sigma8 input
     launches += sigma8_input(fftlog_kernel, Cosmology, rng, card)
 
-    # 8. times
+    # 8. BAO template
+    launches += bao_template(fftlog_kernel, rng, card)
+
+    # 9. times
     engines = {engine: make_pk_to_xi_pipeline_batched(nk=NK, z=[0.0], fft_engine=engine)[0]
                for engine in ('kernel', 'torch')}
     walls = {name: [] for name in engines}
@@ -375,10 +520,14 @@ def main():
                     kernel_ms += ms
                 else:
                     plain_ms += ms
-        times[label] = (kernel_ms, plain_ms)
-        print(f'time, {label}: kernel {kernel_ms:.4f} ms, plain torch.fft {plain_ms:.4f} ms on {card}', flush=True)
+        bound_ms, bound_by = kernel_bound_ms(x, args)
+        library_ms = library_fft_ms(x, args)
+        times[label] = (kernel_ms, plain_ms, bound_ms, bound_by, library_ms)
+        print(f'time, {label}: kernel {kernel_ms:.4f} ms, plain torch.fft {plain_ms:.4f} ms, library FFT calls '
+              f'{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; the kernel at {bound_ms / kernel_ms:.1%} '
+              f'of it) on {card}', flush=True)
 
-    kernel_ms, plain_ms = times[f'PowerToCorrelation ({B}, 1024 -> 2048)']
+    kernel_ms, plain_ms, bound_ms, bound_by, library_ms = times[f'PowerToCorrelation ({B}, 1024 -> 2048)']
     gbytes = 2 * B * NK * 8 / 1e9
     print(f'informational: the kernel moves {gbytes:.4f} GB at the headline shape, {gbytes / kernel_ms:.3f} TB/s, '
           f'{gbytes / kernel_ms / HBM_TB_S:.1%} of {HBM_TB_S} TB/s', flush=True)
@@ -386,7 +535,8 @@ def main():
     print(json.dumps({'kernels': [{
         'name': 'fftlog_core', 'route': 'cuda', 'source': 'cosmoprimo_tpu_torch/csrc/fftlog_core.cu',
         'replaces': 'cosmoprimo_tpu/ops/pallas_fft.py:244', 'launches': launches,
-        'max_abs_err': max_abs_err, 'ms': kernel_ms, 'plain_ms': plain_ms}]}))
+        'max_abs_err': max_abs_err, 'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+        'bound_by': bound_by, 'library_ms': library_ms}]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))
     return 0

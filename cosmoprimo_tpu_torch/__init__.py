@@ -7,8 +7,12 @@ csrc/fftlog_core.cu). This package imports neither JAX nor cosmoprimo_tpu.
 """
 
 from .cosmology import Cosmology, CosmologyError, CosmologyInputError
-from .fftlog import FFTlog, PowerToCorrelation, TophatVariance
-from .interpolator import PowerSpectrumInterpolator1D, PowerSpectrumInterpolator2D, integrate_sigma_r2
+from .fftlog import CorrelationToPower, FFTlog, PowerToCorrelation, TophatVariance
+from .bao_filter import CorrelationFunctionBAOFilter, PowerSpectrumBAOFilter
+from .fiducial import DESI, AbacusSummit, BOSS, DESIDR2Flatw0waCDM, Planck2018FullFlatLCDM, Uchuu
+from .interpolator import (CorrelationFunctionInterpolator1D, CorrelationFunctionInterpolator2D,
+                           PowerSpectrumInterpolator1D, PowerSpectrumInterpolator2D, integrate_sigma_d2,
+                           integrate_sigma_r2)
 from .models.halofit import halofit, halofit_pk_interpolator
 from .models.hmcode import hmcode2020, hmcode_pk_interpolator
 from .pipelines import apply_non_linear, make_pk_to_xi_pipeline_batched

@@ -1,15 +1,18 @@
 """Cosmological parameter system, engine front-end and background
-(the part of cosmoprimo_tpu/cosmology.py on the headline path).
+(cosmoprimo_tpu/cosmology.py without ``Cosmology.solve`` and the file round
+trip).
 
 Batch-first: every numeric parameter is a float64 tensor of one common batch
-shape, () for one cosmology or (B,) for B of them, on one device. Functions of
-redshift return batch shape + z.shape, the layout of the JAX package's
-vmapped output. Invalid values make their rows NaN and never raise, so no
-check waits on the device.
+shape, () for one cosmology or (B,) for B of them, on one device. The
+massive-neutrino species parameters ``m_ncdm`` and ``T_ncdm_over_cmb`` are
+(N_ncdm,) + batch: one row per species, then the batch. Functions of
+redshift return batch shape + z.shape (species first where there is a
+species axis), the layout of the JAX package's vmapped output. Invalid
+values make their rows NaN and never raise, so no check waits on the device.
 
-Massive neutrinos are not ported yet (ROADMAP.md, queue 1, slice 4): a
-massive-neutrino input raises NotImplementedError, and the ncdm densities are
-zero.
+Entry points run on the card: a cosmology is built on ``device`` if given,
+else on the device of its tensor parameters, else on CUDA. Without a card,
+a build that names no device raises; ``device='cpu'`` runs on the CPU.
 """
 
 import functools
@@ -19,11 +22,11 @@ import numpy as np
 import torch
 
 from . import constants, utils
-from .ops import Interpolator1D, cumquad_rk4, exception_or_nan, flatarray
+from .ops import (Interpolator1D, cumquad_rk4, exception_or_nan, flatarray, gauss_laguerre_nodes,
+                  linear_ode2_rk4_prefix, romberg)
+from .ops.roots import for_cond_loop
 
 _Sections = ['Background', 'Thermodynamics', 'Primordial', 'Perturbations', 'Transfer', 'Harmonic', 'Fourier']
-
-_NO_NCDM = 'massive neutrinos are not ported yet (ROADMAP.md, queue 1, slice 4)'
 
 
 class CosmologyError(Exception):
@@ -32,6 +35,72 @@ class CosmologyError(Exception):
 
 class CosmologyInputError(CosmologyError):
     """Error in the value of input parameters."""
+
+
+# ----------------------------------------------------------------------------
+# Neutrino phase-space integrals
+# ----------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _laguerre_tensors(device):
+    """The 100 Gauss-Laguerre nodes and weights on ``device``, copied once."""
+    return tuple(torch.from_numpy(a).to(device) for a in gauss_laguerre_nodes(100))
+
+
+def compute_ncdm_momenta(T_eff, m, z, out='rho'):
+    r"""Energy density, pressure or d(rho)/dm of one massive-neutrino species
+    by 100-point Gauss-Laguerre integration of the frozen Fermi-Dirac
+    distribution, in :math:`10^{10} M_\odot / \mathrm{Mpc}^3` (per eV for
+    'drhodm'). ``T_eff`` and ``m`` are tensors of the batch shape; the result
+    is batch + z.shape."""
+    z = torch.as_tensor(z, dtype=torch.float64, device=m.device)
+    shape = z.shape
+    a = 1.0 / (1.0 + z.reshape(-1))
+    T_a = T_eff[..., None] / a
+    over_T = constants.electronvolt_over_joule / (constants.Boltzmann * T_a)
+    m2_T2 = (m[..., None] * over_T) ** 2
+    m_T2 = m[..., None] * over_T ** 2
+    q, w = _laguerre_tensors(m.device)
+    q2 = q ** 2
+    eps = torch.sqrt(q2 + m2_T2[..., None])
+    # Laguerre absorbs e^{-q}: the integrand carries the 1/(1 + e^{-q}) remainder
+    fd = 1.0 / (1.0 + torch.exp(-q))
+    if out == 'rho':
+        integ = q2 * eps * fd
+    elif out == 'drhodm':
+        integ = m_T2[..., None] * q2 / eps * fd
+    elif out == 'p':
+        integ = (1.0 / 3.0) * q ** 4 / eps * fd
+    else:
+        raise ValueError(f"out must be in ['rho', 'drhodm', 'p'], got {out}")
+    val = torch.sum(integ * w, dim=-1)
+    # Fermi-Dirac normalization and unit conversion to 1e10 Msun / Mpc^3
+    val = (7.0 / 8.0 * 4.0 / constants.c ** 3 * constants.Stefan_Boltzmann * T_a ** 4 * val
+           / (7.0 * np.pi ** 4 / 120.0) / (1e10 * constants.msun_over_kg) * constants.megaparsec_over_m ** 3)
+    return val.reshape(val.shape[:-1] + shape)
+
+
+def _get_ncdm(params, z=0.0, species=None, out='rho'):
+    """Comoving ncdm density or pressure in 1e10 Msun/h / (Mpc/h)^3 from the
+    tensors h, T_cmb (batch), T_ncdm_over_cmb and m_ncdm ((N_ncdm,) + batch):
+    (N_ncdm,) + batch + z.shape for ``species`` None or a list, batch +
+    z.shape for one species."""
+    T, m = params['T_ncdm_over_cmb'], params['m_ncdm']
+    z = torch.as_tensor(z, dtype=torch.float64, device=m.device)
+    h2 = params['h'] ** 2
+    h2 = h2[(...,) + (None,) * z.dim()]
+
+    def compute(s):
+        return compute_ncdm_momenta(params['T_cmb'] * T[s], m[s], z=z, out=out) / (1 + z) ** 3 / h2
+
+    if species is None:
+        species = list(range(m.shape[0]))
+    if isinstance(species, (list, tuple)):
+        if not len(species):
+            batch = torch.broadcast_shapes(h2.shape[:h2.dim() - z.dim()], m.shape[1:])
+            return m.new_zeros((0,) + batch + z.shape)
+        return torch.stack([compute(s) for s in species])
+    return compute(species)
 
 
 # ----------------------------------------------------------------------------
@@ -119,15 +188,21 @@ _STATIC_PARAMS = ('z_pk', 'kmax_pk', 'ellmax_cl')
 _SPECIES_PARAMS = ('m_ncdm', 'T_ncdm_over_cmb')
 
 
-def _has_species(value):
-    return value is not None and (np.ndim(value) == 0 or len(value) > 0)
-
-
-def _infer_device(params):
+def _infer_device(params, device=None):
+    """The device a cosmology is built on: ``device`` if given, else that
+    of the first tensor among ``params`` (values, or species lists of
+    values), else CUDA. Without a card and with no device named, raise:
+    an entry point never falls back to the CPU silently."""
+    if device is not None:
+        return torch.device(device)
     for value in params.values():
-        if isinstance(value, torch.Tensor):
-            return value.device
-    return torch.device('cpu')
+        for item in (value if isinstance(value, (list, tuple)) else [value]):
+            if isinstance(item, torch.Tensor):
+                return item.device
+    if not torch.cuda.is_available():
+        raise CosmologyError("no CUDA device: the port runs on the card by default; pass device='cpu' to run on "
+                             'the CPU')
+    return torch.device('cuda')
 
 
 def _asfloat(value, device):
@@ -141,45 +216,97 @@ def _asfloat(value, device):
     return torch.as_tensor(value, dtype=torch.float64, device=device)
 
 
+def _species(value):
+    """(entries, single): a list, tuple or numpy array holds one entry per
+    species; a scalar or a tensor (of the batch shape) is one species."""
+    if value is None:
+        return [], False
+    if isinstance(value, (list, tuple)) or (isinstance(value, np.ndarray) and value.ndim):
+        return list(value), False
+    return [value], True
+
+
+def _stack_species(values, device):
+    """Per-species values (scalars or batch tensors) as one (N_ncdm,) +
+    batch tensor."""
+    if not len(values):
+        return torch.zeros(0, dtype=torch.float64, device=device)
+    return torch.stack(torch.broadcast_tensors(*[_asfloat(v, device) for v in values]))
+
+
 def _to_batch(params, device):
     """Make every numeric parameter a float64 tensor on ``device``, and
-    broadcast the per-cosmology ones to their common batch shape."""
-    batch = {}
+    broadcast the per-cosmology ones to their common batch shape (after the
+    species axis for ``m_ncdm`` and ``T_ncdm_over_cmb``)."""
+    batch, species = {}, {}
     for name, value in params.items():
-        if name in _STATIC_PARAMS or value is None or isinstance(value, (str, bool, list, tuple)):
-            continue
-        value = _asfloat(value, device)
         if name in _SPECIES_PARAMS:
-            params[name] = value
-        else:
-            batch[name] = value
-    shape = torch.broadcast_shapes(*(value.shape for value in batch.values()))
+            species[name] = _asfloat(value, device)
+        elif not (name in _STATIC_PARAMS or value is None or isinstance(value, (str, bool, list, tuple))):
+            batch[name] = _asfloat(value, device)
+    shape = torch.broadcast_shapes(*(value.shape for value in batch.values()),
+                                   *(value.shape[1:] for value in species.values()))
     params.update({name: value.expand(shape) for name, value in batch.items()})
+    for name, value in species.items():
+        value = value.reshape(value.shape[:1] + (1,) * (len(shape) + 1 - value.dim()) + value.shape[1:])
+        params[name] = value.expand(value.shape[:1] + shape)
     return params
+
+
+def _invert_mass(omega, T_eff):
+    """Newton inversion omega_ncdm -> m (eV) of one species, per row, to
+    |omega - omega(m)| <= 1e-15 or 1000 steps, as the JAX package's loop."""
+    omega, T_eff = torch.broadcast_tensors(omega, T_eff)
+
+    def omega_of(m, out='rho'):
+        return compute_ncdm_momenta(T_eff, m, z=0.0, out=out) / constants.rho_crit_over_Msunph_per_Mpcph3
+
+    def body(i, state):
+        m, check = state
+        m = m + (omega - check) / omega_of(m, out='drhodm')
+        return m, omega_of(m)
+
+    def cond(i, state):
+        return torch.abs(omega - state[1]) > 1e-15
+
+    m_init = omega * 93.14
+    m, _ = for_cond_loop(0, 1000, cond, body, (m_init, omega_of(m_init)))
+    return m
+
+
+def _split_hierarchy(total, masses, dm21, dm31):
+    """Newton split of the mass sum ``total`` into three masses with the
+    squared splittings dm21 and dm31, per row, from ``masses``."""
+    def body(i, state):
+        m0, m1, m2, s = state
+        m0 = m0 + (total - s) / (1.0 + m0 / m1 + m0 / m2)
+        m1 = torch.sqrt(m0 ** 2 + dm21)
+        m2 = torch.sqrt(m0 ** 2 + dm31)
+        return m0, m1, m2, m0 + m1 + m2
+
+    def cond(i, state):
+        return torch.abs(total - state[3]) > 1e-15
+
+    masses = [torch.full_like(total, m) for m in masses]
+    return list(for_cond_loop(0, 1000, cond, body, (*masses, masses[0] + masses[1] + masses[2]))[:3])
 
 
 def compile_params(args, engine=None, device=None):
     """Normalize input parameters to the internal basis: H0->h, omega->Omega,
-    logA->A_s, Omega_g->T_cmb, N_ur from N_eff; apply positivity and
-    dark-energy validation, poisoning the offending rows with NaN.
+    logA->A_s, Omega_g->T_cmb; resolve the neutrino sector (the Omega_ncdm
+    -> mass Newton inversion, the hierarchy split, N_ur from N_eff); apply
+    positivity and dark-energy validation, poisoning the offending rows
+    with NaN.
 
-    Pure function: dict in, dict out (numeric values as batch tensors).
+    Pure function: dict in, dict out (numeric values as batch tensors on
+    ``device``, see :func:`_infer_device`).
     """
     params = dict(args)
-    if device is None:
-        device = _infer_device(params)
+    device = _infer_device(params, device)
     check_ignore = getattr(engine, '_check_ignore', ()) if engine is not None else ()
 
     def asfloat(value):
         return _asfloat(value, device)
-
-    for name in ('m_ncdm', 'mnu', 'Omega_ncdm', 'Omega0_ncdm', 'omega_ncdm', 'neutrino_hierarchy'):
-        if _has_species(params.pop(name, None)):
-            raise NotImplementedError(f'{name} given: {_NO_NCDM}')
-    T_ncdm_over_cmb = params.pop('T_ncdm_over_cmb', None)
-    if T_ncdm_over_cmb is not None and np.ndim(T_ncdm_over_cmb) and len(T_ncdm_over_cmb):
-        raise TypeError('T_ncdm_over_cmb and m_ncdm must have the same length, found '
-                        f'{len(T_ncdm_over_cmb)} != 0')
 
     if 'H0' in params:
         params['h'] = params.pop('H0') / 100.0
@@ -197,7 +324,10 @@ def compile_params(args, engine=None, device=None):
     h = params['h']
     for name in list(params):
         if name.startswith('omega'):
-            value = asfloat(params.pop(name)) / h ** 2
+            value = params.pop(name)
+            entries, single = _species(value) if name == 'omega_ncdm' else ([value], True)
+            value = [asfloat(v) / h ** 2 for v in entries]
+            value = value[0] if single else value
             target = name.replace('omega', 'Omega')
             assert target not in params, f'found both {name} and {target}'
             params[target] = value
@@ -214,16 +344,72 @@ def compile_params(args, engine=None, device=None):
         params['T_cmb'] = (asfloat(params.pop('Omega_g')) * h ** 2 * constants.rho_crit_over_kgph_per_mph3
                            / (4.0 / constants.c ** 3 * constants.Stefan_Boltzmann)) ** 0.25
 
+    # ---------------- neutrino sector ----------------
+    T_ncdm_over_cmb = params.pop('T_ncdm_over_cmb', None)
+
+    def prepare_T(T, n):
+        if T is None:
+            T = constants.TNCDM_OVER_CMB
+        if isinstance(T, torch.Tensor) or np.ndim(T) == 0:
+            T = [T] * n
+        T = list(T)
+        if n and not len(T):
+            T = [constants.TNCDM_OVER_CMB]
+        if len(T) != n:
+            raise TypeError(f'T_ncdm_over_cmb and m_ncdm must have the same length, found {len(T)} != {n}')
+        return T
+
+    if 'm_ncdm' in params:
+        m_ncdm, single = _species(params.pop('m_ncdm'))
+    elif 'Omega_ncdm' in params:
+        Omega_ncdm, single = _species(params.pop('Omega_ncdm'))
+        T_ncdm_over_cmb = prepare_T(T_ncdm_over_cmb, len(Omega_ncdm))
+        m_ncdm = []
+        for Om, T in zip(Omega_ncdm, T_ncdm_over_cmb):
+            Om = asfloat(Om)
+            # a massless row takes a dummy target, so that its Newton steps stay finite
+            omega = torch.where(Om == 0.0, 1e-3, Om * h ** 2)
+            m_ncdm.append(torch.where(Om == 0.0, 0.0, _invert_mass(omega, params['T_cmb'] * asfloat(T))))
+    else:
+        m_ncdm, single = [], False
+    T_ncdm_over_cmb = prepare_T(T_ncdm_over_cmb, len(m_ncdm))
+
+    neutrino_hierarchy = params.pop('neutrino_hierarchy', None)
+    if neutrino_hierarchy is not None:
+        if not single:
+            raise CosmologyInputError('neutrino_hierarchy requires a single m_ncdm (the mass sum)')
+        sum_ncdm = asfloat(m_ncdm[0])
+        if 'm_ncdm' not in check_ignore:
+            sum_ncdm = exception_or_nan(sum_ncdm, sum_ncdm < 0.0, None)
+        # squared mass splittings, arXiv:1907.12598
+        dm21 = 7.39e-5
+        if neutrino_hierarchy == 'normal':
+            dm31 = 2.525e-3
+            sum_ncdm = exception_or_nan(sum_ncdm, sum_ncdm ** 2 < dm21 + dm31, None)
+            m_ncdm = _split_hierarchy(sum_ncdm, (0.0, dm21, dm31), dm21, dm31)
+        elif neutrino_hierarchy == 'inverted':
+            dm32 = -2.512e-3
+            dm31 = dm32 + dm21
+            sum_ncdm = exception_or_nan(sum_ncdm, sum_ncdm ** 2 < -dm31 - dm32, None)
+            m_ncdm = _split_hierarchy(sum_ncdm, (np.sqrt(-dm31), np.sqrt(-dm32), 1e-5), dm21, dm31)
+        elif neutrino_hierarchy == 'degenerate':
+            m_ncdm = [sum_ncdm / 3.0] * 3
+        else:
+            raise CosmologyInputError(f'unknown neutrino hierarchy {neutrino_hierarchy}')
+        T_ncdm_over_cmb = [T_ncdm_over_cmb[0]] * 3
+
     N_ur = params.pop('N_ur', None)
     if 'Omega_ur' in params:
         T_ur = params['T_cmb'] * (4.0 / 11.0) ** (1.0 / 3.0)
         rho = 7.0 / 8.0 * 4.0 / constants.c ** 3 * constants.Stefan_Boltzmann * T_ur ** 4
         N_ur = params.pop('Omega_ur') / (rho / (h ** 2 * constants.rho_crit_over_kgph_per_mph3))
-    # no ncdm species: N_eff is carried by the massless neutrinos alone
+    # N_ncdm is static: every species is kept, even a massless one
+    params['m_ncdm'] = _stack_species(m_ncdm, device)
+    params['T_ncdm_over_cmb'] = _stack_species(T_ncdm_over_cmb, device)
     N_eff = params.pop('N_eff', constants.NEFF)
-    params['N_ur'] = asfloat(N_eff if N_ur is None else N_ur)
-    params['m_ncdm'] = torch.zeros(0, dtype=torch.float64, device=device)
-    params['T_ncdm_over_cmb'] = torch.zeros(0, dtype=torch.float64, device=device)
+    if N_ur is None:
+        N_ur = N_eff - torch.sum(params['T_ncdm_over_cmb'] ** 4 * (4.0 / 11.0) ** (-4.0 / 3.0), dim=0)
+    params['N_ur'] = asfloat(N_ur)
     if params.pop('N_ncdm', None) is not None:
         raise CosmologyInputError('Do not provide N_ncdm; provide m_ncdm of the correct length')
 
@@ -240,27 +426,29 @@ def compile_params(args, engine=None, device=None):
         params['z_pk'] = np.insert(params['z_pk'], 0, 0.0)
 
     if 'Omega_m' in params:
-        params['Omega_cdm'] = params.pop('Omega_m') - params['Omega_b']
+        ncdm = {name: asfloat(params[name]) for name in ('h', 'T_cmb', 'm_ncdm', 'T_ncdm_over_cmb')}
+        nonrel = (torch.sum(_get_ncdm(ncdm, z=0.0, out='rho'), dim=0)
+                  - 3 * torch.sum(_get_ncdm(ncdm, z=0.0, out='p'), dim=0)) / constants.rho_crit_over_Msunph_per_Mpcph3
+        params['Omega_cdm'] = params.pop('Omega_m') - params['Omega_b'] - nonrel
 
     for name, default in {'w0_fld': -1.0, 'wa_fld': 0.0, 'cs2_fld': 1.0}.items():
         params[name] = asfloat(params.get(name, default))
 
-    def w_err(value):
-        raise CosmologyInputError(f'w0_fld + wa_fld >= 1/3 (found {value}) violates early radiation domination')
+    # w0 + wa >= 1/3 violates early radiation domination
     value = params['w0_fld'] + params['wa_fld']
-    value = exception_or_nan(value, value >= 1.0 / 3.0, w_err)
+    value = exception_or_nan(value, value >= 1.0 / 3.0, None)
     for name in ['w0_fld', 'wa_fld']:
         params[name] = torch.where(torch.isnan(value), torch.nan, params[name])
 
     params['use_ppf'] = bool(params.get('use_ppf', True))
 
-    for basename in ['Omega_cdm', 'Omega_b', 'T_cmb', 'h', 'A_s', 'sigma8']:
+    for basename in ['Omega_cdm', 'Omega_b', 'T_cmb', 'h', 'A_s', 'sigma8', 'm_ncdm', 'T_ncdm_over_cmb']:
         if basename in params and basename not in check_ignore:
             value = asfloat(params[basename])
-
-            def pos_err(v, basename=basename):
-                raise CosmologyInputError(f'Parameter {basename} should be positive, found {v}')
-            params[basename] = exception_or_nan(value, value < 0.0, pos_err)
+            negative = value < 0.0
+            if basename in _SPECIES_PARAMS:   # one negative species poisons its cosmology
+                negative = negative.any(dim=0)
+            params[basename] = exception_or_nan(value, negative, None)
 
     def check_str(name, allowed):
         value = params[name]
@@ -339,7 +527,7 @@ class ParamsAccessor(object):
         if name == 'T_ur':
             return params['T_cmb'] * (4.0 / 11.0) ** (1.0 / 3.0)
         if name == 'T_ncdm':
-            return params['T_ncdm_over_cmb'] * params['T_cmb'][..., None]
+            return params['T_ncdm_over_cmb'] * params['T_cmb']
         if name == 'Omega_ur':
             rho = params['N_ur'] * 7.0 / 8.0 * self.get('T_ur') ** 4 * 4.0 / constants.c ** 3 * constants.Stefan_Boltzmann
             return rho / (self.get('h') ** 2 * constants.rho_crit_over_kgph_per_mph3)
@@ -347,10 +535,14 @@ class ParamsAccessor(object):
             rho = (params['T_cmb'] ** 4 + params['N_ur'] * 7.0 / 8.0 * self.get('T_ur') ** 4) * 4.0 / constants.c ** 3 * constants.Stefan_Boltzmann
             return rho / (self.get('h') ** 2 * constants.rho_crit_over_kgph_per_mph3) + self.get('Omega_pncdm_tot')
         if name == 'm_ncdm_tot':
-            return torch.sum(params['m_ncdm'])
-        if name in ('Omega_ncdm', 'Omega_pncdm'):
-            # one row per species (none yet), then the batch
-            return params['h'].new_zeros((0,) + params['h'].shape)
+            return torch.sum(params['m_ncdm'], dim=0)
+        if name == 'Omega_ncdm':
+            # one row per species, then the batch
+            self._derived[name] = _get_ncdm(params, z=0.0, out='rho') / constants.rho_crit_over_Msunph_per_Mpcph3
+            return self._derived[name]
+        if name == 'Omega_pncdm':
+            self._derived[name] = 3.0 * _get_ncdm(params, z=0.0, out='p') / constants.rho_crit_over_Msunph_per_Mpcph3
+            return self._derived[name]
         if name == 'Omega_ncdm_tot':
             return torch.sum(self.get('Omega_ncdm'), dim=0)
         if name == 'Omega_pncdm_tot':
@@ -366,9 +558,9 @@ class ParamsAccessor(object):
         if name == 'K':
             return -100.0 ** 2 / (constants.c / 1e3) ** 2 * params['Omega_k']  # (h/Mpc)^2
         if name == 'N_ncdm':
-            return len(params['m_ncdm'])
+            return params['m_ncdm'].shape[0]
         if name == 'N_eff':
-            return torch.sum(params['T_ncdm_over_cmb'] ** 4 * (4.0 / 11.0) ** (-4.0 / 3.0)) + params['N_ur']
+            return torch.sum(params['T_ncdm_over_cmb'] ** 4 * (4.0 / 11.0) ** (-4.0 / 3.0), dim=0) + params['N_ur']
         raise KeyError(name)
 
     @property
@@ -384,6 +576,7 @@ _ENGINE_REGISTRY = {}
 
 _ENGINE_MODULES = {
     'eisenstein_hu': 'models.eisenstein_hu',
+    'eisenstein_hu_nowiggle': 'models.eisenstein_hu_nowiggle',
 }
 
 
@@ -519,8 +712,9 @@ class Cosmology(ParamsAccessor):
     """A validated batch of cosmological parameters with an optional engine.
 
     Parameters may be Python numbers, numpy arrays or tensors; they are
-    broadcast to one batch shape, as float64 tensors on ``device`` (by default
-    the device of the first tensor given, else the CPU).
+    broadcast to one batch shape, as float64 tensors on ``device``: by
+    default the device of the first tensor given, else the CUDA card (see
+    :func:`_infer_device`; ``device='cpu'`` runs on the CPU).
     """
 
     def __init__(self, engine=None, extra_params=None, device=None, **params):
@@ -552,20 +746,85 @@ class Cosmology(ParamsAccessor):
         return engine
 
     @classmethod
+    def get_default_params(cls, of=None, include_conflicts=True):
+        if of is None:
+            out = cls.get_default_params(of='cosmology', include_conflicts=include_conflicts)
+            out.update(cls.get_default_params(of='calculation', include_conflicts=include_conflicts))
+            return out
+        if of == 'cosmology':
+            out = dict(DEFAULT_COSMOLOGICAL_PARAMETERS)
+        elif of == 'calculation':
+            out = dict(DEFAULT_CALCULATION_PARAMETERS)
+        else:
+            raise CosmologyInputError(f'No default parameters for {of}')
+        if include_conflicts:
+            for name in list(out):
+                for conf in find_conflicts(name):
+                    out[conf] = out[name]
+        return out
+
+    def get_params(self, of='base'):
+        if of == 'derived':
+            return dict(self._derived)
+        if of == 'extra':
+            return dict(self._extra_params)
+        toret = dict(self._params)
+        if of == 'base':
+            return toret
+        if of == 'input':
+            return dict(self._input_params)
+        if of in ('cosmology', 'calculation'):
+            defaults = self.get_default_params(of=of)
+            return {name: toret.get(name, value) for name, value in defaults.items()}
+        if of == 'all':
+            toret.update(self.get_params(of='derived'))
+            toret.update(self.get_params(of='extra'))
+            return toret
+        raise CosmologyInputError(f'No parameters for {of}')
+
+    def clone(self, base='input', engine=None, extra_params=None, **params):
+        """A copy with updated parameters (and possibly engine), on this
+        cosmology's device. ``base='input'`` updates the user-facing input
+        basis; 'internal' updates the compiled h/Omega/m_ncdm basis."""
+        check_params(params)
+        if base == 'input':
+            base_params = dict(self._input_params)
+        elif base in ('internal', None):
+            base_params = dict(self._params)
+            for name in _SPECIES_PARAMS:   # the compiled (N_ncdm,) + batch tensors, one entry per species
+                base_params[name] = list(base_params[name])
+        else:
+            raise CosmologyInputError(f'Unknown parameter base {base}')
+        new = self.__class__.__new__(self.__class__)
+        new._derived = {}
+        new._engine = None
+        new._extra_params = {}
+        new._input_params = merge_params(base_params, params)
+        if engine is None and self._engine is not None:
+            engine = self._engine.__class__
+        engine_cls = get_engine(engine) if engine is not None else None
+        new._params = compile_params(new._input_params, engine=engine_cls, device=self.device)
+        if engine_cls is not None:
+            if extra_params is None:
+                if engine_cls.name == getattr(self._engine, 'name', None):
+                    extra_params = getattr(self._engine, '_extra_params', {})
+                else:
+                    extra_params = {}
+            new.set_engine(engine_cls, **extra_params)
+        return new
+
+    @classmethod
     def from_state(cls, state, device=None):
         """Build from the dict that ``cosmoprimo_tpu.Cosmology.__getstate__()``
-        returns (numpy arrays and strings), on ``device`` (default CPU), with
-        its compiled parameters taken as they are."""
-        params = dict(state['params'])
-        for name in _SPECIES_PARAMS:
-            if np.size(params.get(name, ())):
-                raise NotImplementedError(f'{name} in state: {_NO_NCDM}')
+        returns (numpy arrays and strings), on ``device`` (by default the
+        CUDA card), with its compiled parameters taken as they are."""
         new = cls.__new__(cls)
         new._derived = {}
         new._engine = None
         new._extra_params = {}
         new._input_params = dict(state.get('input_params', {}))
-        new._params = _to_batch(params, torch.device('cpu') if device is None else torch.device(device))
+        params = dict(state['params'])
+        new._params = _to_batch(params, _infer_device(params, device))
         if state.get('engine', None) is not None:
             new.set_engine(state['engine']['name'], **state['engine']['extra_params'])
         return new
@@ -633,13 +892,25 @@ class BaseBackground(BaseSection):
             setattr(self, '_Omega0_' + name, engine['Omega_' + name])
 
     # ---- densities
-    @flatarray()
-    def rho_ncdm_tot(self, z):
-        return torch.zeros_like(self.h[..., None] * z)
+    def _ncdm_params(self):
+        return {'h': self._h, 'T_cmb': self._T0_cmb, 'T_ncdm_over_cmb': self._T0_ncdm / self._T0_cmb,
+                'm_ncdm': self._m_ncdm}
 
     @flatarray()
+    def rho_ncdm(self, z, species=None):
+        """Comoving density of the massive neutrinos: (N_ncdm,) + batch +
+        z.shape, or batch + z.shape for one ``species``."""
+        return _get_ncdm(self._ncdm_params(), z=z, species=species, out='rho')
+
+    def rho_ncdm_tot(self, z):
+        return torch.sum(self.rho_ncdm(z, species=None), dim=0)
+
+    @flatarray()
+    def p_ncdm(self, z, species=None):
+        return _get_ncdm(self._ncdm_params(), z=z, species=species, out='p')
+
     def p_ncdm_tot(self, z):
-        return torch.zeros_like(self.h[..., None] * z)
+        return torch.sum(self.p_ncdm(z, species=None), dim=0)
 
     @flatarray()
     def rho_g(self, z):
@@ -701,6 +972,15 @@ class BaseBackground(BaseSection):
     def hubble_function(self, z):
         return self.efunc(z) * self.H0[..., None]
 
+    @flatarray()
+    def T_cmb(self, z):
+        return self.T0_cmb[..., None] * (1 + z)
+
+    @flatarray()
+    def T_ncdm(self, z, species=None):
+        T0 = self.T0_ncdm if species is None else self.T0_ncdm[species]
+        return T0[..., None] * (1 + z)
+
     # ---- density parameters
     def Omega_cdm(self, z):
         return self.rho_cdm(z) / self.rho_crit(z)
@@ -723,8 +1003,14 @@ class BaseBackground(BaseSection):
     def Omega_m(self, z):
         return self.rho_m(z) / self.rho_crit(z)
 
+    def Omega_ncdm(self, z, species=None):
+        return self.rho_ncdm(z, species=species) / self.rho_crit(z)
+
     def Omega_ncdm_tot(self, z):
         return self.rho_ncdm_tot(z) / self.rho_crit(z)
+
+    def Omega_pncdm(self, z, species=None):
+        return 3 * self.p_ncdm(z, species=species) / self.rho_crit(z)
 
     def Omega_pncdm_tot(self, z):
         return 3 * self.p_ncdm_tot(z) / self.rho_crit(z)
@@ -738,6 +1024,48 @@ class BaseBackground(BaseSection):
     def Omega_de(self, z):
         return self.rho_de(z) / self.rho_crit(z)
 
+    # ---- distances
+    def _curved(self, chi):
+        """The curvature transverse function S_K of a comoving radial
+        distance (batch + z.shape), K in (h/Mpc)^2, branchless."""
+        K = self.K.reshape(self.K.shape + (1,) * (chi.dim() - self.K.dim()))
+        sqrt_absK = torch.sqrt(torch.abs(K))
+        safe = torch.where(sqrt_absK == 0, 1.0, sqrt_absK)
+        closed = torch.sin(safe * chi) / safe
+        open_ = torch.sinh(safe * chi) / safe
+        return torch.where(K == 0, chi, torch.where(K > 0, closed, open_))
+
+    @flatarray()
+    def angular_diameter_distance(self, z):
+        r"""Proper angular diameter distance, in Mpc/h (astro-ph/9905116 eq. 18)."""
+        return self._curved(self.comoving_radial_distance(z)) / (1 + z)
+
+    @flatarray(iargs=[0, 1])
+    def angular_diameter_distance_2(self, z1, z2):
+        r"""Angular diameter distance of z2 as seen from z1, in Mpc/h."""
+        return self._curved(self.comoving_radial_distance(z2) - self.comoving_radial_distance(z1)) / (1 + z2)
+
+    @flatarray()
+    def comoving_transverse_distance(self, z):
+        r"""Comoving transverse distance, in Mpc/h (astro-ph/9905116 eq. 16)."""
+        return self.angular_diameter_distance(z) * (1.0 + z)
+
+    comoving_angular_distance = comoving_transverse_distance
+
+    @flatarray()
+    def luminosity_distance(self, z):
+        return self.angular_diameter_distance(z) * (1.0 + z) ** 2
+
+    def rs(self, z):
+        """Sound horizon at the scalar redshift ``z``, in Mpc/h (CAMB's
+        dsoundda integrand, Romberg with 15 refinements): the batch shape."""
+        def dsoundda(a):
+            dtauda = 1.0 / (a ** 2 * self.hubble_function(1 / a - 1.0) / (constants.c / 1e3))
+            R = 3 / 4.0 * a * (self.Omega0_b / self.Omega0_g)[..., None]
+            return dtauda * (3 * (1 + R)) ** (-0.5)
+
+        return romberg(dsoundda, 1e-8, 1.0 / (1 + float(z)), divmax=15, epsabs=1e-7, epsrel=1e-7,
+                       device=self.device) * self.h
 
 @functools.lru_cache(maxsize=None)
 def _z_interp_tensor(name, device):
@@ -759,19 +1087,119 @@ def get_default_z_interp(name):
 
 
 class DefaultBackground(BaseBackground):
-    """Background with interpolation tables for the expensive quantities,
-    built on first access and cached on the section."""
+    """Background with interpolation tables for the expensive quantities
+    (ncdm momenta, times, distances, growth), built on first access and
+    cached on the section, on its device. Every table holds the whole batch:
+    the knots first, then the species and the batch."""
 
     def __init__(self, engine):
         super().__init__(engine)
         self._cache = {}
 
+    def _table(self, name, build):
+        """The interpolator ``name`` of the cache, made by ``build()`` once."""
+        if name not in self._cache:
+            self._cache[name] = build()
+        return self._cache[name]
+
+    def _ncdm_table(self, out, z, species):
+        if self.N_ncdm == 0:
+            return z.new_zeros((0,) + self.h.shape + z.shape)
+
+        def build():
+            zc = _z_interp_tensor(f'{out}_ncdm', self.device)
+            fun = BaseBackground.rho_ncdm if out == 'rho' else BaseBackground.p_ncdm
+            return Interpolator1D(zc, torch.movedim(fun(self, zc), -1, 0), extrap=True, assume_sorted=True)
+
+        out = torch.movedim(self._table(f'{out}_ncdm', build)(z), 0, -1)
+        return out if species is None else out[species]
+
+    @flatarray()
+    def rho_ncdm(self, z, species=None):
+        return self._ncdm_table('rho', z, species)
+
+    @flatarray()
+    def p_ncdm(self, z, species=None):
+        return self._ncdm_table('p', z, species)
+
+    def _time_integral(self, name):
+        """Cumulative c / ((1 + z) H(z)) on the 'time' z-grid: batch + (400,)."""
+        zc = _z_interp_tensor(name, self.device)
+        return zc, cumquad_rk4(lambda y, zz: constants.c / 1e3 / (1.0 + zz) / (100.0 * self.efunc(zz)), 0.0, zc)
+
+    @flatarray()
+    def time(self, z):
+        r"""Proper time (age of the universe at z), in Gyr."""
+        def build():
+            zc, tmp = self._time_integral('time')
+            tmp = (tmp[..., -1:] - tmp) / self.h[..., None] / constants.gigayear_over_megaparsec
+            return Interpolator1D(zc, torch.movedim(tmp, -1, 0), assume_sorted=True)
+
+        return torch.movedim(self._table('time', build)(z), 0, -1)
+
+    @property
+    def age(self):
+        r"""Current age of the universe, in Gyr: the batch shape."""
+        if 'age' not in self._cache:
+            _, tmp = self._time_integral('age')
+            self._cache['age'] = (tmp[..., -1] - tmp[..., 0]) / self.h / constants.gigayear_over_megaparsec
+        return self._cache['age']
+
     @flatarray()
     def comoving_radial_distance(self, z):
         r"""Comoving radial distance, in Mpc/h (astro-ph/9905116 eq. 15)."""
-        if 'comoving_radial_distance' not in self._cache:
+        def build():
             zc = _z_interp_tensor('comoving_radial_distance', self.device)
             tmp = cumquad_rk4(lambda y, zz: constants.c / 1e3 / (100.0 * self.efunc(zz)), 0.0, zc)
-            # the spline runs along axis 0: knots first, batch after
-            self._cache['comoving_radial_distance'] = Interpolator1D(zc, torch.movedim(tmp, -1, 0), assume_sorted=True)
-        return torch.movedim(self._cache['comoving_radial_distance'](z), 0, -1)
+            return Interpolator1D(zc, torch.movedim(tmp, -1, 0), assume_sorted=True)
+
+        return torch.movedim(self._table('comoving_radial_distance', build)(z), 0, -1)
+
+    def _growth_tables(self, mass='m'):
+        """Interpolators of D(z) and f(z) from the growth ODE
+        D'' = 3/2 Omega_mass D + (-1 - a''/a) D' in eta = ln(a) on 201 steps
+        from eta = -6, a linear system solved by
+        :func:`ops.linear_ode2_rk4_prefix`."""
+        name_factor, name_rate = f'growth_factor_{mass}', f'growth_rate_{mass}'
+        if name_factor not in self._cache:
+            if mass == 'm':
+                Omega_mass = self.Omega_m
+            elif mass == 'cb':
+                def Omega_mass(z):
+                    return self.Omega_cdm(z) + self.Omega_b(z)
+            else:
+                raise ValueError("mass must be one of ['m', 'cb']")
+
+            def coeffs(eta):
+                z = torch.exp(-eta) - 1.0
+                w_fld = self.w0_fld[..., None] + z / (1.0 + z) * self.wa_fld[..., None]
+                addot = -0.5 * (1.0 - self.Omega_k(z) + self.Omega_r(z) + 3 * w_fld * self.Omega_de(z))
+                return 1.5 * Omega_mass(z), -1.0 - addot
+
+            eta_np = np.linspace(-6.0, 0.0, 201)
+            eta = torch.from_numpy(eta_np).to(self.device)
+            zc = torch.from_numpy((np.exp(-eta_np) - 1.0)[::-1].copy()).to(self.device)
+            D0 = float(np.exp(eta_np[0]))
+            sol = linear_ode2_rk4_prefix(coeffs, [D0, D0], eta)          # batch + (201, 2)
+            Dplus, Dplusp = sol[..., 0], sol[..., 1]
+            self._cache[name_factor] = Interpolator1D(zc, torch.movedim(Dplus.flip(-1), -1, 0), assume_sorted=True)
+            self._cache[name_rate] = Interpolator1D(zc, torch.movedim((Dplusp / Dplus).flip(-1), -1, 0),
+                                                    assume_sorted=True)
+        return self._cache[name_factor], self._cache[name_rate]
+
+    @flatarray()
+    def growth_factor(self, z, mass='m', znorm=None):
+        r"""Linear growth factor D(z) from the growth ODE in ln(a) with
+        w(z)-aware friction, normalized to D(0) = 1 (or to the matter-era
+        (1 + znorm)/(1 + z) convention if ``znorm`` is given)."""
+        factor, _ = self._growth_tables(mass=mass)
+        growthz = torch.movedim(factor(z), 0, -1)
+        if znorm is not None:
+            return (1.0 + znorm) * growthz
+        return growthz / torch.movedim(factor(z.new_zeros(1)), 0, -1)
+
+    @flatarray()
+    def growth_rate(self, z, mass='m'):
+        r"""Growth rate f(z) = dlnD/dlna."""
+        _, rate = self._growth_tables(mass=mass)
+        return torch.movedim(rate(z), 0, -1)

@@ -1,5 +1,5 @@
 r"""FFTLog transforms (cosmoprimo_tpu/fftlog.py): FFTlog, PowerToCorrelation,
-TophatVariance, ``pad`` and the Mellin kernels.
+CorrelationToPower, TophatVariance, ``pad`` and the Mellin kernels.
 
 Computes :math:`G(y) = \int_0^\infty x\,dx\,F(x) K(xy)` for log-spaced x
 (Hamilton 2000). The setup (output grid, Mellin coefficients ``padded_u``,
@@ -321,6 +321,19 @@ class PowerToCorrelation(FFTlog):
         else:
             # real inputs: the imaginary part of odd multipoles is provided
             phase = (-1) ** (ell // 2)
+        self.padded_postfactor = self.padded_postfactor * phase[:, None]
+
+
+class CorrelationToPower(FFTlog):
+    r"""xi_ell(s) -> P_ell(k): :math:`P_\ell(k) = 4\pi i^\ell \int ds\,s^2
+    \xi_\ell(s) j_\ell(ks)`."""
+
+    def __init__(self, s, ell=0, q=0, complex=False, **kwargs):
+        kernel = SphericalBesselJKernel(ell) if np.ndim(ell) == 0 else [SphericalBesselJKernel(l) for l in ell]
+        FFTlog.__init__(self, s, kernel, q=1.5 + q, **kwargs)
+        self.padded_prefactor = self.padded_prefactor * self.padded_x ** 3 * (2 * np.pi) ** 1.5
+        ell = np.atleast_1d(ell)
+        phase = (1j) ** ell if complex else (-1) ** (ell // 2)
         self.padded_postfactor = self.padded_postfactor * phase[:, None]
 
 

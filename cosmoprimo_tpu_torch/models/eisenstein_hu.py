@@ -79,8 +79,11 @@ class EisensteinHuEngine(BaseEngine):
 
     def __init__(self, cosmo, **extra_params):
         super().__init__(cosmo, **extra_params)
-        self._coefficients = compute_eh98_coefficients(self)
+        self.compute()
         self._A_s = self._get_A_s_fid()
+
+    def compute(self):
+        self._coefficients = compute_eh98_coefficients(self)
 
     def __getattr__(self, name):
         coeffs = self.__dict__.get('_coefficients', {})
@@ -111,6 +114,16 @@ class Background(DefaultBackground):
         arXiv:astro-ph/0507263."""
         wz1 = self.w0_fld + (1.0 - 0.5) * self.wa_fld
         return self.Omega_m(z) ** (0.55 + 0.05 * (1 + wz1))[..., None]
+
+
+@utils.addproperty('rs_drag', 'z_drag')
+class Thermodynamics(BaseSection):
+    """rs_drag (in Mpc/h) and z_drag from the EH98 fits: the batch shape."""
+
+    def __init__(self, engine):
+        super().__init__(engine)
+        self._rs_drag = engine.rs_drag * engine['h']
+        self._z_drag = engine.z_drag
 
 
 @utils.addproperty('k_pivot', 'n_s', 'alpha_s', 'beta_s')

@@ -1,5 +1,6 @@
-"""Cumulative quadrature and the linear 2nd-order Magnus solver on a fixed
-grid (cosmoprimo_tpu/ops/odeint.py::cumquad_rk4, linear_ode2_magnus)."""
+"""Cumulative quadrature and the linear 2nd-order solvers on a fixed grid
+(cosmoprimo_tpu/ops/odeint.py::cumquad_rk4, linear_ode2_magnus,
+linear_ode2_rk4_prefix)."""
 
 import numpy as np
 import torch
@@ -68,19 +69,58 @@ def linear_ode2_magnus(coeffs_fun, y0, t):
     c0 = torch.where(q2 >= 0, torch.cosh(q), torch.cos(q))
     c1 = torch.where(q > 1e-8, torch.where(q2 >= 0, torch.sinh(qs) / qs, torch.sin(qs) / qs), 1.0 + q2 / 6.0)
     e = torch.exp(tr2)
-    cum = [e * (c0 + c1 * b00), e * c1 * o01, e * c1 * o10, e * (c0 - c1 * b00)]
+    return _propagate((e * (c0 + c1 * b00), e * c1 * o01, e * c1 * o10, e * (c0 - c1 * b00)), y0)
 
-    # inclusive prefix products cum_i = P_i @ ... @ P_1: at offset d, every
-    # i >= d takes cum_i @ cum_{i-d}
-    n = h.shape[0]
+
+def _mmul(x, y):
+    """Product x @ y of 2x2 matrices given as 4-tuples (00, 01, 10, 11)."""
+    x00, x01, x10, x11 = x
+    y00, y01, y10, y11 = y
+    return (x00 * y00 + x01 * y10, x00 * y01 + x01 * y11, x10 * y00 + x11 * y10, x10 * y01 + x11 * y11)
+
+
+def _propagate(P, y0):
+    """(..., n, 2): y0, then the inclusive prefix products P_i @ ... @ P_1 of
+    the interval propagators ``P`` (a 4-tuple, intervals on the last axis)
+    applied to ``y0``. The products come from a log-depth doubling scan
+    (Hillis-Steele: at offset d, every i >= d takes cum_i @ cum_{i-d}), where
+    the JAX package uses ``jax.lax.associative_scan``."""
+    cum = list(torch.broadcast_tensors(*P))
+    n = cum[0].shape[-1]
     d = 1
     while d < n:
-        a00, a01, a10, a11 = (c[..., :-d] for c in cum)
-        b00_, b01, b10, b11 = (c[..., d:] for c in cum)
-        new = (b00_ * a00 + b01 * a10, b00_ * a01 + b01 * a11, b10 * a00 + b11 * a10, b10 * a01 + b11 * a11)
+        new = _mmul([c[..., d:] for c in cum], [c[..., :-d] for c in cum])
         cum = [torch.cat([c[..., :d], m], dim=-1) for c, m in zip(cum, new)]
         d *= 2
     y0 = torch.as_tensor(y0, dtype=cum[0].dtype, device=cum[0].device)
     ys = torch.stack([cum[0] * y0[0] + cum[1] * y0[1], cum[2] * y0[0] + cum[3] * y0[1]], dim=-1)
     first = y0.expand(ys.shape[:-2] + (1, 2))
     return torch.cat([first, ys], dim=-2)
+
+
+def linear_ode2_rk4_prefix(coeffs_fun, y0, t):
+    """Fixed-grid rk4 for the linear 2nd-order ODE y'' = s(t) y + f(t) y' on
+    the 1D grid ``t`` (n,), returning (..., n, 2) with columns (y, y').
+
+    ``coeffs_fun(t)`` returns (s, f) with the grid on the last axis. On the
+    linear system Y' = A(t) Y, A = [[0, 1], [s, f]], one rk4 step is the
+    linear map R = I + h/6 (K1 + 2 K2 + 2 K3 + K4) with K1 = A1,
+    K2 = A2 (I + h/2 K1), K3 = A2 (I + h/2 K2), K4 = A3 (I + h K3), built for
+    every interval at once and composed by :func:`_propagate`: the rk4
+    recurrence up to the order of the products."""
+    h = torch.diff(t)
+    s_end, f_end = coeffs_fun(t)
+    s_mid, f_mid = coeffs_fun((t[:-1] + t[1:]) / 2.0)
+
+    def iplus(x, c):                                      # I + c x
+        x00, x01, x10, x11 = x
+        return (1.0 + c * x00, c * x01, c * x10, 1.0 + c * x11)
+
+    A1 = (0.0, 1.0, s_end[..., :-1], f_end[..., :-1])
+    A2 = (0.0, 1.0, s_mid, f_mid)
+    A3 = (0.0, 1.0, s_end[..., 1:], f_end[..., 1:])
+    K2 = _mmul(A2, iplus(A1, h / 2.0))
+    K3 = _mmul(A2, iplus(K2, h / 2.0))
+    K4 = _mmul(A3, iplus(K3, h))
+    Ksum = tuple(k1 + 2.0 * k2 + 2.0 * k3 + k4 for k1, k2, k3, k4 in zip(A1, K2, K3, K4))
+    return _propagate(iplus(Ksum, h / 6.0), y0)

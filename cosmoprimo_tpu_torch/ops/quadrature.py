@@ -1,5 +1,9 @@
-"""Composite Simpson quadrature and trapezoid weights (cosmoprimo_tpu/ops/quadrature.py)."""
+"""Composite Simpson, Romberg, Gauss-Laguerre and Gauss-Legendre nodes and
+trapezoid weights (cosmoprimo_tpu/ops/quadrature.py)."""
 
+import functools
+
+import numpy as np
 import torch
 
 
@@ -57,3 +61,42 @@ def trapezoid_weights(x):
     integrals (models/halofit.py, models/hmcode.py)."""
     dx = torch.diff(x)
     return torch.cat([dx[:1] / 2, (dx[:-1] + dx[1:]) / 2, dx[-1:] / 2])
+
+
+def romberg(function, a, b, epsabs=1e-8, epsrel=1e-8, divmax=10, device=None):
+    """Romberg integration of ``function`` over [a, b] (Python floats) with
+    ``divmax`` refinements. ``function(x)`` takes a 1D tensor of abscissae on
+    ``device`` and returns (..., x.size), the batch leading; the result has
+    the batch shape. Where the last two diagonal entries disagree by more
+    than ``epsabs`` or ``epsrel``, that row is NaN: nothing is checked on
+    the host."""
+    interval_size = b - a
+    ends = function(torch.tensor([a, b], dtype=torch.float64, device=device))
+    ordsum = 0.5 * (ends[..., 0] + ends[..., 1])
+    last_row = [interval_size * ordsum]
+    n = 1
+    for i in range(1, divmax + 1):
+        n *= 2
+        h = interval_size / (n // 2)
+        points = a + (torch.arange(n // 2, dtype=torch.float64, device=device) + 0.5) * h
+        ordsum = ordsum + torch.sum(function(points), dim=-1)
+        row = [interval_size * ordsum / n]
+        for k in range(1, i + 1):
+            pow4 = 4.0 ** k
+            row.append((pow4 * row[k - 1] - last_row[k - 1]) / (pow4 - 1.0))
+        err = torch.abs(last_row[i - 1] - row[i])
+        last_row = row
+    result = last_row[divmax]
+    return torch.where((err < epsabs) & (err < torch.abs(result) * epsrel), result, torch.nan)
+
+
+@functools.lru_cache(maxsize=32)
+def leggauss(n):
+    """Gauss-Legendre nodes and weights on [-1, 1] (numpy, made once)."""
+    return np.polynomial.legendre.leggauss(n)
+
+
+@functools.lru_cache(maxsize=8)
+def gauss_laguerre_nodes(n):
+    """Gauss-Laguerre nodes and weights (numpy, made once)."""
+    return np.polynomial.laguerre.laggauss(n)

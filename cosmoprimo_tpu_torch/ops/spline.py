@@ -1,14 +1,20 @@
-"""Natural cubic splines (cosmoprimo_tpu/ops/spline.py).
+"""Natural cubic and linear splines (cosmoprimo_tpu/ops/spline.py).
 
-Same semantics as scipy.interpolate.CubicSpline(bc_type='natural'). The JAX
-package solves the tridiagonal system with associative scans, a form chosen
-for TPU parallelism. Here the system is solved by one LU factorisation of
-the (n-2, n-2) matrix, which depends on the knots only, applied to every
-value column at once: the knots are a small static grid (119 nodes on the
-distance table) and the columns are the batch.
+Same semantics as scipy.interpolate.CubicSpline(bc_type='natural'). Two
+layouts:
 
-Also the batched linear :func:`interp` and the tensor-product
-:class:`Interpolator2D`.
+- shared knots, knots first: :func:`natural_cubic_coeffs` solves the
+  tridiagonal system by one LU factorisation of the (n-2, n-2) matrix, which
+  depends on the knots only, applied to every value column at once (the
+  knots are a small static grid, the columns are the batch); this is what
+  :class:`Interpolator1D` and :class:`Interpolator2D` use;
+- knots per row, knots last: :func:`natural_cubic_coeffs_rows` and
+  :func:`cubic_eval_rows`, for knots that differ by cosmology (the BAO
+  peak positions rescaled by each cosmology's sound horizon). Their
+  tridiagonal systems are solved together by :func:`tridiagonal_solve`,
+  log-depth scans over the knot axis as in the JAX package.
+
+Also the batched linear :func:`interp`.
 """
 
 import numpy as np
@@ -33,6 +39,21 @@ def natural_cubic_coeffs(x, f):
     Mi = torch.linalg.solve_ex(T, rhs)[0].reshape((n - 2,) + f.shape[1:])
     zero = f.new_zeros((1,) + f.shape[1:])
     return torch.cat([zero, Mi, zero], dim=0)
+
+
+def linear_eval(x, f, t, nu=0):
+    """Piecewise-linear interpolation with edge extrapolation, the shape
+    conventions of :func:`cubic_eval`."""
+    n = x.shape[0]
+    i = torch.clamp(torch.searchsorted(x, t, right=True) - 1, 0, n - 2)
+    bshape = (-1,) + (1,) * (f.dim() - 1)
+    h = (x[i + 1] - x[i]).reshape(bshape)
+    if nu == 0:
+        w = (t - x[i]).reshape(bshape) / h
+        return f[i] * (1 - w) + f[i + 1] * w
+    if nu == 1:
+        return (f[i + 1] - f[i]) / h
+    return f.new_zeros((t.shape[0],) + f.shape[1:])
 
 
 def cubic_eval(x, f, M, t, nu=0):
@@ -65,13 +86,13 @@ def cubic_eval(x, f, M, t, nu=0):
 
 
 class Interpolator1D(object):
-    """Natural cubic interpolator along axis 0 of ``fun`` (n, ...), with
-    optional log10 transforms of x and/or fun, and NaN outside the knot
-    range unless ``extrap``. Tensors live on ``fun``'s device."""
+    """Interpolator along axis 0 of ``fun`` (n, ...), natural cubic for
+    ``k`` = 3 and linear otherwise (as the JAX package), with optional log10
+    transforms of x and/or fun, and NaN outside the knot range unless
+    ``extrap``. Tensors live on ``fun``'s device."""
 
     def __init__(self, x, fun, k=3, interp_x='lin', interp_fun='lin', extrap=False, assume_sorted=False):
-        if k != 3:
-            raise NotImplementedError('only cubic (k=3) interpolation is ported')
+        self.k = int(k)
         self.interp_x = str(interp_x)
         self.interp_fun = str(interp_fun)
         fun = torch.as_tensor(fun, dtype=torch.float64)
@@ -89,7 +110,7 @@ class Interpolator1D(object):
         fun = fun.reshape(x.shape[0], -1)
         self._kx = x
         self._kf = fun
-        self._kM = natural_cubic_coeffs(x, fun)
+        self._kM = natural_cubic_coeffs(x, fun) if self.k == 3 else None
 
     def __call__(self, x, dx=0):
         x = torch.as_tensor(x, dtype=torch.float64, device=self._kx.device)
@@ -97,7 +118,10 @@ class Interpolator1D(object):
         x = x.reshape(-1)
         mask = (x >= self.xmin) & (x <= self.xmax)
         tx = torch.log10(x) if self.interp_x == 'log' else x
-        tmp = cubic_eval(self._kx, self._kf, self._kM, tx, nu=dx)
+        if self.k == 3:
+            tmp = cubic_eval(self._kx, self._kf, self._kM, tx, nu=dx)
+        else:
+            tmp = linear_eval(self._kx, self._kf, tx, nu=dx)
         if self.interp_fun == 'log':
             tmp = 10**tmp
         if not self.extrap:
@@ -137,9 +161,12 @@ def _cell_cubic(h, dl, dr, f0, f1, m0, m1):
 
 
 class Interpolator2D(object):
-    """Tensor-product natural cubic interpolator on the grid (x, y) for
-    ``fun`` (nx, ny, ...), the trailing axes a batch, with optional log10
-    transforms of x, y and fun, and NaN outside the grid unless ``extrap``.
+    """Tensor-product interpolator on the grid (x, y) for ``fun``
+    (nx, ny, ...), the trailing axes a batch, natural cubic along x (y) for
+    ``kx`` (``ky``) = 3 and linear otherwise, with optional log10 transforms
+    of x, y and fun, and NaN outside the grid unless ``extrap``. A linear
+    direction has zero second derivatives, which reduce the cubic cell to
+    the linear one.
 
     Every coefficient is solved at construction: ``My`` (second
     y-derivatives of the data), ``Mx`` (second x-derivatives) and ``Mxy``
@@ -149,7 +176,7 @@ class Interpolator2D(object):
     one bicubic cell per (x, y) pair, (nq, ...).
     """
 
-    def __init__(self, x, y, fun, interp_x='lin', interp_y='lin', interp_fun='lin', extrap=False,
+    def __init__(self, x, y, fun, kx=3, ky=3, interp_x='lin', interp_y='lin', interp_fun='lin', extrap=False,
                  assume_sorted=False):
         self.interp_x, self.interp_y, self.interp_fun = str(interp_x), str(interp_y), str(interp_fun)
         fun = torch.as_tensor(fun, dtype=torch.float64)
@@ -169,7 +196,7 @@ class Interpolator2D(object):
         self.extrap = bool(extrap)
         self._tx, self._ty, self._tf = x, y, fun
         zeros = torch.zeros_like(fun)
-        cubic_x, cubic_y = x.shape[0] > 2, y.shape[0] > 2
+        cubic_x, cubic_y = int(kx) == 3 and x.shape[0] > 2, int(ky) == 3 and y.shape[0] > 2
         self._My = natural_cubic_coeffs(y, fun.movedim(1, 0)).movedim(0, 1) if cubic_y else zeros
         self._Mx = natural_cubic_coeffs(x, fun) if cubic_x else zeros
         self._Mxy = natural_cubic_coeffs(x, self._My) if cubic_x and cubic_y else zeros
@@ -217,3 +244,99 @@ class Interpolator2D(object):
         if not self.extrap:
             tmp = torch.where(mask.reshape(mask.shape + (1,) * (tmp.dim() - mask.dim())), tmp, torch.nan)
         return tmp.reshape(toret_shape + tmp.shape[mask.dim():])
+
+
+def _scan(elems, combine):
+    """Inclusive scan over the last axis of the tuple of tensors ``elems``,
+    ``combine(earlier, later)`` associative, by log-depth doubling."""
+    elems = list(torch.broadcast_tensors(*elems))
+    n = elems[0].shape[-1]
+    d = 1
+    while d < n:
+        new = combine([e[..., :-d] for e in elems], [e[..., d:] for e in elems])
+        elems = [torch.cat([e[..., :d], m], dim=-1) for e, m in zip(elems, new)]
+        d *= 2
+    return elems
+
+
+def _mobius_combine(a, b):
+    """b @ a for 2x2 matrices as 4-tuples, normalised by the largest entry:
+    only the ratios of the cumulative products are used."""
+    a00, a01, a10, a11 = a
+    b00, b01, b10, b11 = b
+    c = (b00 * a00 + b01 * a10, b00 * a01 + b01 * a11, b10 * a00 + b11 * a10, b10 * a01 + b11 * a11)
+    norm = torch.maximum(torch.maximum(c[0].abs(), c[1].abs()), torch.maximum(c[2].abs(), c[3].abs()))
+    norm = torch.where(norm == 0, 1.0, norm)
+    return tuple(x / norm for x in c)
+
+
+def _linear_combine(a, b):
+    """Composition of the affine maps y -> a y + b: ``a`` first."""
+    return b[0] * a[0], b[0] * a[1] + b[1]
+
+
+def _linear_recurrence(a, b):
+    """y_i = a_i y_{i-1} + b_i along the last axis, y_{-1} = 0."""
+    return _scan((a, b), _linear_combine)[1]
+
+
+def tridiagonal_solve(dl, d, du, b):
+    """Solve the tridiagonal systems T y = b along the last axis, with
+    sub-, main and super-diagonals ``dl`` (dl[..., 0] unused), ``d``, ``du``
+    (du[..., -1] unused); all broadcast against ``b`` (..., n), so each row
+    may have its own matrix.
+
+    The JAX package's parallel form: the forward elimination
+    w_i = du_i / (d_i - dl_i w_{i-1}) as a prefix of 2x2 (Mobius) products,
+    then the two linear recurrences of the elimination and the back
+    substitution, each a log-depth scan."""
+    zero = torch.zeros_like(d[..., :1])
+    P = _scan((torch.zeros_like(d), du, -dl, d), _mobius_combine)
+    w = P[1] / P[3]
+    denom = d - dl * torch.cat([zero, w[..., :-1]], dim=-1)
+    g = _linear_recurrence(-dl / denom, b / denom)
+    return _linear_recurrence(-w.flip(-1), g.flip(-1)).flip(-1)
+
+
+def natural_cubic_coeffs_rows(x, f):
+    """Second derivatives M (..., n) of the natural cubic splines through
+    (x, f) with the knots on the LAST axis: ``x`` (..., n) strictly
+    increasing along it, broadcasting against ``f`` (..., n)."""
+    n = x.shape[-1]
+    if n == 2:
+        return torch.zeros_like(f + x)
+    h = torch.diff(x, dim=-1)
+    df = torch.diff(f, dim=-1) / h
+    rhs = df[..., 1:] - df[..., :-1]
+    d = (h[..., :-1] + h[..., 1:]) / 3.0
+    if n == 3:
+        Mi = rhs / d
+    else:
+        zero = torch.zeros_like(h[..., :1])
+        dl = torch.cat([zero, h[..., 1:-1] / 6.0], dim=-1)
+        du = torch.cat([h[..., 1:-1] / 6.0, zero], dim=-1)
+        Mi = tridiagonal_solve(dl, d, du, rhs)
+    zero = torch.zeros_like(Mi[..., :1])
+    return torch.cat([zero, Mi, zero], dim=-1)
+
+
+def cubic_eval_rows(x, f, M, t):
+    """The natural cubic splines of knots ``x``, values ``f`` and second
+    derivatives ``M`` (..., n), knots on the last axis, at ``t`` (..., m):
+    leading axes broadcast, so the knots, the values or the queries may be
+    shared between rows. Out-of-range queries extrapolate with the edge
+    cubic. Returns (..., m)."""
+    n = x.shape[-1]
+    batch = torch.broadcast_shapes(x.shape[:-1], f.shape[:-1], M.shape[:-1], t.shape[:-1])
+    if x.dim() == 1:
+        i = torch.searchsorted(x, t, right=True)
+    else:
+        xs = x.expand(torch.broadcast_shapes(x.shape[:-1], t.shape[:-1]) + (n,)).contiguous()
+        i = torch.searchsorted(xs, t.expand(xs.shape[:-1] + t.shape[-1:]).contiguous(), right=True)
+    i = torch.clamp(i - 1, 0, n - 2).expand(batch + t.shape[-1:])
+
+    def take(a, j):
+        return torch.gather(a.expand(batch + (n,)), -1, j)
+
+    x0, x1 = take(x, i), take(x, i + 1)
+    return _cell_cubic(x1 - x0, t - x0, x1 - t, take(f, i), take(f, i + 1), take(M, i), take(M, i + 1))

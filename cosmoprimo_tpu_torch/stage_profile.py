@@ -1,6 +1,9 @@
-"""Per-stage device profile of the halofit and HMcode pipelines on one CUDA card:
+"""Per-stage device profile of the halofit, HMcode and BAO-template paths on
+one CUDA card:
 
-    python3 -m cosmoprimo_tpu_torch.stage_profile
+    python3 -m cosmoprimo_tpu_torch.stage_profile [halofit] [HMcode] [BAO]
+
+(all three without an argument).
 
 For each stage (set-up, linear P(k), the sigma^2 matmul, halofit's Newton
 block, HMcode's growth ODE, dewiggle and one-halo NFW tensor, the whole
@@ -10,8 +13,13 @@ prints the device busy ms and kernel launches of one call under
 pipeline, the device busy time of one profiled call against its wall time
 without the profiler (the device's idle share) and its top kernels. Sizes
 are those of chip_smoke.py: halofit at B = 16 384, nk = 1024, HMcode at
-B = 4096, nk = 384, z = [0]; parameters are drawn from a seed. Informational
-only: it checks nothing, and prints the card's name and power limit.
+B = 4096, nk = 384, z = [0]; the BAO template (chip_smoke's phase 8) at
+B = 4096 cosmologies with one massive neutrino species, nk = 1024, the
+seven DESI DR1 redshifts and the DESI fiducial: the set-up, the P(k) table
+on the filters' grid, each traced filter, to_xi of the smooth and of the
+linear spectrum, kirkby2013 and to_pk, then one peakaverage filter and
+to_xi as a whole. Parameters are drawn from a seed. Informational only: it
+checks nothing, and prints the card's name and power limit.
 """
 
 import subprocess
@@ -112,7 +120,48 @@ def stages(non_linear, n, nk, rng):
     return out, params
 
 
-def main():
+DESI_Z = (0.295, 0.51, 0.706, 0.93, 1.317, 1.491, 2.33)
+
+
+def bao_stages(n, rng):
+    """The stages of the BAO-template path as {name: callable}, and the
+    whole (one peakaverage filter and to_xi)."""
+    from .bao_filter import CorrelationFunctionBAOFilter, PowerSpectrumBAOFilter
+    from .fiducial import DESI
+    params = [torch.from_numpy(p).to(DEVICE) for p in (
+        rng.uniform(0.11, 0.13, n), rng.uniform(0.021, 0.023, n), rng.uniform(0.65, 0.70, n),
+        rng.uniform(0.94, 0.98, n), rng.uniform(2.9, 3.1, n), rng.uniform(0.06, 0.12, n))]
+
+    def setup():
+        omega_cdm, omega_b, h, n_s, logA, m_ncdm = params
+        cosmo = Cosmology(omega_cdm=omega_cdm, omega_b=omega_b, h=h, n_s=n_s, logA=logA, m_ncdm=[m_ncdm],
+                          N_eff=3.044, engine='eisenstein_hu')
+        cosmo.get_background().efunc(torch.zeros(1, dtype=torch.float64, device=DEVICE))   # the ncdm tables
+        return cosmo
+
+    cosmo, fid = setup(), DESI(engine='eisenstein_hu')
+    pk = cosmo.get_fourier().pk_interpolator(z=DESI_Z)
+    k, z = torch.from_numpy(np.geomspace(1e-7, 1e2, 1024)).to(DEVICE), torch.tensor(DESI_Z, device=DEVICE)
+
+    def pk_filter(name):
+        return lambda: PowerSpectrumBAOFilter(pk, engine=name, cosmo=cosmo, cosmo_fid=fid)
+
+    smooth = pk_filter('peakaverage')().smooth_pk_interpolator()
+    xi = pk.to_xi()
+    smooth_xi = CorrelationFunctionBAOFilter(xi, engine='kirkby2013', cosmo=cosmo, cosmo_fid=fid).smooth_xi_interpolator()
+    out = {'set-up (Cosmology with the ncdm tables)': setup, "P(k) table on the filters' grid": lambda: pk(k, z)}
+    for name in ('peakaverage', 'bspline', 'ehpoly', 'hinton2017', 'savgol', 'ehsavgol'):
+        out[f'filter {name}'] = pk_filter(name)
+    out.update({'to_xi of the smooth P(k) (2D spline, FFTLog, xi table)': smooth.to_xi,
+                'to_xi of the linear P(k)': pk.to_xi,
+                'filter kirkby2013': lambda: CorrelationFunctionBAOFilter(xi, engine='kirkby2013', cosmo=cosmo,
+                                                                          cosmo_fid=fid),
+                'to_pk of the smooth xi': smooth_xi.to_pk})
+    return out, lambda: pk_filter('peakaverage')().smooth_pk_interpolator().to_xi()
+
+
+def main(argv=()):
+    names = set(argv) or {'halofit', 'HMcode', 'BAO'}
     if not torch.cuda.is_available():
         print('stage_profile: torch.cuda is not available', file=sys.stderr)
         return 1
@@ -121,6 +170,8 @@ def main():
     print(f'card: {card}', flush=True)
     rng = np.random.default_rng(2)
     for label, non_linear, n, nk in SIZES:
+        if label not in names:
+            continue
         named, params = stages(non_linear, n, nk, rng)
         for name, fn in named.items():
             busy, _, _, launches, _ = profile_events(fn)
@@ -137,8 +188,22 @@ def main():
               f'{profiled:.3f} ms under it; on {card}', flush=True)
         for name, ms, count in top:
             print(f'  {ms:9.3f} ms  x{count:<5d} {name}', flush=True)
+    if 'BAO' in names:
+        n = 4096
+        named, whole = bao_stages(n, rng)
+        for name, fn in named.items():
+            busy, _, _, launches, _ = profile_events(fn)
+            print(f'stage, BAO template B={n} x {len(DESI_Z)} z: {name}: device {busy:.4f} ms in {launches} launches '
+                  f'(torch.profiler), stream {cuda_ms(fn):.4f} ms (CUDA events) on {card}', flush=True)
+        wall = wall_ms(whole)
+        busy, profiled, kinds, launches, top = profile_events(whole)
+        print(f'profile, BAO template (peakaverage and to_xi) B={n} x {len(DESI_Z)} z: device busy {busy:.3f} ms in '
+              f'{launches} kernel launches ({kinds} kinds); wall {wall:.3f} ms without the profiler (idle '
+              f'{1 - busy / wall:.1%}), {profiled:.3f} ms under it; on {card}', flush=True)
+        for name, ms, count in top:
+            print(f'  {ms:9.3f} ms  x{count:<5d} {name}', flush=True)
     return 0
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

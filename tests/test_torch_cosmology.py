@@ -17,8 +17,10 @@ import jax.numpy as jnp  # noqa: E402
 import cosmoprimo_tpu as jcp  # noqa: E402
 from cosmoprimo_tpu.interpolator import kernel_tophat2 as jkernel_tophat2  # noqa: E402
 from cosmoprimo_tpu.models.eisenstein_hu import compute_eh98_coefficients as jeh98  # noqa: E402
-from cosmoprimo_tpu_torch import Cosmology  # noqa: E402
-from cosmoprimo_tpu_torch.interpolator import integrate_sigma_r2, kernel_tophat2  # noqa: E402
+from cosmoprimo_tpu_torch import Cosmology, CosmologyInputError  # noqa: E402
+from cosmoprimo_tpu_torch.cosmology import CosmologyError, _infer_device  # noqa: E402
+from cosmoprimo_tpu_torch.fiducial import DESI  # noqa: E402
+from cosmoprimo_tpu_torch.interpolator import kernel_tophat2  # noqa: E402
 from cosmoprimo_tpu_torch.models.eisenstein_hu import compute_eh98_coefficients  # noqa: E402
 
 RTOL = 1e-12
@@ -53,7 +55,7 @@ INPUTS = [
 
 @pytest.mark.parametrize('inputs', INPUTS)
 def test_compile_params(inputs):
-    port = Cosmology(**inputs)._params
+    port = Cosmology(device='cpu', **inputs)._params
     ref = jcp.Cosmology(**inputs)._params
     assert set(port) == set(ref)
     for name, value in ref.items():
@@ -141,15 +143,30 @@ def test_invalid_rows_are_nan():
 
 
 def test_not_ported_yet():
-    with pytest.raises(NotImplementedError, match='slice 4'):
-        Cosmology(engine='eisenstein_hu', m_ncdm=0.06)
-    with pytest.raises(NotImplementedError, match='slice 4'):
-        Cosmology(engine='eisenstein_hu', neutrino_hierarchy='normal', m_ncdm=0.1)
-    pk = Cosmology(engine='eisenstein_hu', logA=3.0).get_fourier().pk_interpolator()
-    with pytest.raises(NotImplementedError, match='slice 4'):
-        pk.sigma_rz(8.0, 0.0, method='romberg')
-    with pytest.raises(NotImplementedError, match='slice 4'):
-        integrate_sigma_r2(8.0, lambda k: k, method='simpson')
+    """Massive neutrinos, the hierarchies and a JAX state with them are
+    ported; the tabulated engine and its fiducial are not (slice 4b)."""
+    assert Cosmology(engine='eisenstein_hu', m_ncdm=0.06, device='cpu')['N_ncdm'] == 1
+    assert Cosmology(engine='eisenstein_hu', neutrino_hierarchy='normal', m_ncdm=0.1, device='cpu')['N_ncdm'] == 3
     state = jcp.Cosmology(engine='eisenstein_hu', m_ncdm=0.06).__getstate__()
-    with pytest.raises(NotImplementedError, match='slice 4'):
-        Cosmology.from_state(state)
+    assert Cosmology.from_state(state, device='cpu')['N_ncdm'] == 1
+    with pytest.raises(CosmologyInputError, match='Unknown engine tabulated'):
+        Cosmology(engine='tabulated', device='cpu')
+    from cosmoprimo_tpu_torch.fiducial import TabulatedDESI
+    with pytest.raises(NotImplementedError, match='slice 4b'):
+        TabulatedDESI()
+
+
+def test_default_device(monkeypatch):
+    """Float inputs pick the CUDA card; tensors keep their device; device='cpu'
+    runs on the CPU; without a card, a build that names no device raises."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    assert _infer_device({'h': 0.7, 'omega_cdm': np.float64(0.12)}) == torch.device('cuda')
+    assert _infer_device({'h': 0.7, 'm_ncdm': [torch.zeros(2, dtype=torch.float64)]}) == torch.device('cpu')
+    assert _infer_device({'h': 0.7}, device='cpu') == torch.device('cpu')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    for build in (lambda: Cosmology(h=0.7), lambda: Cosmology.from_state(jcp.Cosmology().__getstate__()),
+                  lambda: DESI(engine='eisenstein_hu')):
+        with pytest.raises(CosmologyError, match="device='cpu'"):
+            build()
+    assert Cosmology(h=0.7, device='cpu').device == torch.device('cpu')
+    assert DESI(engine='eisenstein_hu', device='cpu').device == torch.device('cpu')

@@ -11,7 +11,8 @@ Bars, as measured on the CPU:
   and 6.2e-13). The 1e-16 rounding of the two sigma^2 matmuls reaches C =
   -y''(ln R_sigma) divided by the squared ln R spacing (0.109), ~1e-13
   absolute, and 10^(-0.6038 C + ...) carries it into P;
-- chi and sigma8 of the pipeline: rtol 1e-13 (measured 4.4e-16; linear).
+- chi and sigma8 of the pipeline: rtol 1e-13 (measured 4.4e-16; linear);
+- halofit with one massive neutrino species (fnu > 0): 1e-11, as halofit.
 """
 
 import functools
@@ -134,3 +135,17 @@ def test_pk_interpolator_non_linear(non_linear, calc_non_linear, z):
     np.testing.assert_allclose(got, jax_pk_nl(non_linear, calc_non_linear, z), rtol=BAR)
     paired = pk(t(PK_K[:3]), t(PK_Z), grid=False).numpy()
     np.testing.assert_allclose(paired, np.stack([np.diagonal(g[:3]) for g in got]), rtol=BAR)
+
+
+def test_halofit_massive_neutrinos():
+    """halofit with fnu > 0 (one massive species of 0.06 eV: the Bird et al.
+    correction and the ncdm background), through the Fourier section."""
+    def single(logA, w0):
+        cosmo = jcp.Cosmology(engine='eisenstein_hu', logA=logA, w0_fld=w0, m_ncdm=[0.06])
+        return cosmo.get_fourier().pk_interpolator(non_linear='halofit', z=PK_Z)(PK_K, PK_Z)
+
+    ref = np.asarray(jax.jit(jax.vmap(single))(jnp.array([3.0, 3.1]), jnp.array([-1.0, -0.8])))
+    cosmo = Cosmology(engine='eisenstein_hu', logA=t([3.0, 3.1]), w0_fld=t([-1.0, -0.8]), m_ncdm=[0.06])
+    fo = cosmo.get_fourier()
+    assert bool((fo._fnu > 0.004).all())
+    np.testing.assert_allclose(fo.pk_interpolator(non_linear='halofit', z=PK_Z)(t(PK_K), t(PK_Z)).numpy(), ref, rtol=BAR)

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from cosmoprimo_tpu_torch import PowerToCorrelation, TophatVariance
+from cosmoprimo_tpu_torch import CorrelationToPower, PowerToCorrelation, TophatVariance
 from cosmoprimo_tpu_torch.ops import fftlog_kernel
 
 BAR = 1e-12
@@ -171,3 +171,29 @@ def test_complex_multipoles_on_cuda(cuda_device):
     assert fftlog_kernel.launches == launches + 2 and got.dtype == torch.complex128
     _, ref = PowerToCorrelation(k, ell=[0, 1, 2, 3], complex=True, engine='torch')(pk)
     assert norm_err(torch.view_as_real(got).flatten(-2), torch.view_as_real(ref).flatten(-2)) <= BAR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('direction,rows', [('to_xi', 7 * 4096), ('to_pk', 4096)])
+def test_bao_template_shapes_on_cuda(cuda_device, direction, rows):
+    """The two transforms of the BAO-template path: to_xi's
+    PowerToCorrelation on the 1e-7..1e2 grid at B * nz = 28 672 rows, and
+    to_pk's CorrelationToPower on the s grid that to_xi returns, per row
+    against plain, forward and backward."""
+    k = np.geomspace(1e-7, 1e2, 1024)
+    p2c = PowerToCorrelation(k)
+    transform = p2c if direction == 'to_xi' else CorrelationToPower(np.geomspace(p2c.y[0, 0], p2c.y[0, -1], 1024))
+    arrays = transform._arrays(cuda_device)
+    args = (arrays['padded_u'], arrays['padded_prefactor'], arrays['padded_postfactor'],
+            transform.padded_size_in_left, transform.padded_size_out_left)
+    x, _ = smooth_rows(transform.x[0] if direction == 'to_xi' else 1.0 / transform.x[0], rows, rows)
+    x = x.to(cuda_device)
+    launches = fftlog_kernel.launches
+    got = fftlog_kernel.fftlog_core(x, *args)
+    assert fftlog_kernel.launches == launches + 1
+    assert norm_err(got, fftlog_kernel.fftlog_core_torch(x, *args)) <= BAR
+    grad_out = torch.from_numpy(np.random.default_rng(rows).normal(size=(rows, 1024))).to(cuda_device)
+    xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    gk, = torch.autograd.grad(fftlog_kernel.fftlog_core(xk, *args), xk, grad_out)
+    gp, = torch.autograd.grad(fftlog_kernel.fftlog_core_torch(xp, *args), xp, grad_out)
+    assert norm_err(gk, gp) <= BAR

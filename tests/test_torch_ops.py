@@ -194,3 +194,40 @@ def test_interpolator2d(grid, log):
                            out_axes=-1))(fun)
     np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
     np.testing.assert_allclose(got, np.asarray(ref), rtol=RTOL)
+
+
+@pytest.mark.parametrize('n', [3, 4, 37])
+def test_spline_rows(n):
+    """Knots per row (the batched tridiagonal scans of
+    natural_cubic_coeffs_rows) and evaluation per row against the JAX
+    spline built on each row's knots, at rtol 1e-12 of each row's scale."""
+    rng = np.random.default_rng(n)
+    x = np.sort(rng.uniform(-2.0, 2.0, (5, n)), axis=-1)
+    f = np.sin(3 * x) + rng.normal(size=(5, n)) * 0.1
+    t = rng.uniform(-2.5, 2.5, (5, 50))
+    M = spline.natural_cubic_coeffs_rows(torch.from_numpy(x), torch.from_numpy(f))
+    got = spline.cubic_eval_rows(torch.from_numpy(x), torch.from_numpy(f), M, torch.from_numpy(t)).numpy()
+    for i in range(5):
+        jM = jspline.natural_cubic_coeffs(jnp.asarray(x[i]), jnp.asarray(f[i]))
+        np.testing.assert_allclose(M[i].numpy(), np.asarray(jM), rtol=RTOL, atol=RTOL * np.abs(jM).max())
+        ref = np.asarray(jspline.cubic_eval(jnp.asarray(x[i]), jnp.asarray(f[i]), jM, jnp.asarray(t[i])))
+        np.testing.assert_allclose(got[i], ref, rtol=RTOL, atol=RTOL * np.abs(ref).max())
+
+
+@pytest.mark.parametrize('nu', [0, 1, 2])
+def test_linear_interpolator(nu):
+    """The order-1 spline of Interpolator1D (k != 3) against the JAX one."""
+    x = np.geomspace(1e-3, 10.0, 40)
+    f = np.stack([np.log(x), x ** 2], axis=-1)
+    q = np.geomspace(2e-3, 9.0, 25)
+    got = spline.Interpolator1D(torch.from_numpy(x), torch.from_numpy(f), k=1, interp_x='log')(torch.from_numpy(q), dx=nu)
+    ref = jspline.Interpolator1D(x, f, k=1, interp_x='log')(q, dx=nu)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL, atol=1e-15)
+
+
+def test_romberg_and_gauss_laguerre():
+    got = quadrature.romberg(lambda x: torch.stack([torch.exp(-x), x ** 3]), 0.0, 2.0, divmax=8)
+    ref = [jquad.romberg(lambda x: jnp.exp(-x), 0.0, 2.0, divmax=8), jquad.romberg(lambda x: x ** 3, 0.0, 2.0, divmax=8)]
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL)
+    for a, b in zip(quadrature.gauss_laguerre_nodes(100), jquad.gauss_laguerre_nodes(100)):
+        np.testing.assert_array_equal(a, b)
