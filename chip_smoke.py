@@ -59,8 +59,26 @@ Phases, each failing the run (non-zero exit) if its check fails:
    against f64 operations over 34 TFLOP/s, the larger); and the kernel's
    achieved device-memory rate at the headline shape (informational).
 
-The kernel's launches in the main-path runs of phases 4-8 are summed into
-the "kernels" line. The last line is {"ok": true, "device": {...}}.
+10. native pipeline: make_native_pk_pipeline_batched(nk=256, kmax=1.0,
+    z=(0, 1)) at B = 64 (B = 256 takes over 30 s a call: PERF.md), its
+    three step loops replayed from CUDA graphs: finite outputs, the wall
+    (median of 3 after the first call, which is the warm-up) and the peak
+    memory;
+11. native DESI: DESI(engine='native', nk_pk=128) on the card against the
+    CLASS anchors (sigma8_m and sigma8_cb within 5e-3, P(k) in the BAO band
+    at z = 0 and 1 within 1.2e-2, z_drag within 2.0, z_star_noreion within
+    2.5, rs_drag within 1.5e-3, tau_reio within 1e-6 of its input); its
+    sigma8 launches the FFTLog kernel;
+12. native, card against CPU: the pipeline at kmax = 0.5 on 4 cosmologies,
+    pk_m and sigma8 rtol 1e-9, the thermodynamics scalars rtol 1e-10;
+13. native, graphs against eager: the recombination scan and linear_pk on
+    the cosmologies of 12 replayed from CUDA graphs and run eagerly on the
+    card, x_e and pk_m within 1e-13; linear_pk on 256 k to 0.05 h/Mpc at
+    768 + 384 steps (36 chunks of 32 steps), since the eager loops took
+    ~70 s at the budget of 12.
+
+The kernel's launches in the main-path runs of phases 4-8 and 11 are summed
+into the "kernels" line. The last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
@@ -93,6 +111,31 @@ DESI_Z = np.array([0.295, 0.51, 0.706, 0.93, 1.317, 1.491, 2.33])   # DESI DR1 e
 BAO_FILTERS = ('peakaverage', 'bspline', 'ehpoly', 'hinton2017', 'savgol', 'ehsavgol')
 BAO_RTOL = 1e-10
 K_FROM_XI = np.geomspace(1e-3, 1.0, 256)
+# the native Boltzmann path: the full-width pipeline (B = 256 takes 31.0 s a
+# call on an H100 80GB HBM3 at 700 W, above the 30 s a call allowed here, so
+# 64: PERF.md), and the card against the CPU and graphs against eager on 4
+B_NATIVE = 64
+NK_NATIVE = 256
+B_NATIVE_CHECK = 4
+NATIVE_RTOL = 1e-9        # pk_m and sigma8, card against CPU
+THERMO_RTOL = 1e-10       # thermodynamics scalars, card against CPU
+GRAPH_RTOL = 1e-13        # graph replay against the eager loop, on the card
+# its k grid and step budget: the loops stay finite there (not converged: a
+# lane of P(k) moves by up to ~55% against the budget of kmax = 0.5); the
+# check is of the replay
+GRAPH_KMAX, GRAPH_N_STEPS = 0.05, (768, 384, 2048)
+# CLASS v3.1.1 anchors of the DESI fiducial (the JAX package's
+# tests/test_perturbations.py and test_thermodynamics.py): P(k) in (Mpc/h)^3
+# at k in h/Mpc, the BAO band k <= 0.21
+K_H = np.array([1e-3, 3e-3, 1e-2, 0.03, 0.05, 0.1, 0.15, 0.2, 0.3, 0.5])
+PK_M_Z0 = np.array([3784.8365994, 10006.0275874, 21679.8515778, 19385.944493, 12126.510581,
+                    5397.8832812, 3093.3731677, 1932.5470914, 870.0262655, 310.6450734])
+PK_M_Z1 = np.array([1393.0124627, 3683.7396485, 7984.9843905, 7146.3873148, 4472.2818496,
+                    1991.6801977, 1141.5762539, 713.2474431, 321.1272727, 114.665446])
+BAO_BAND = K_H <= 0.21
+SIGMA8_M_CLASS, SIGMA8_CB_CLASS = 0.807952, 0.811355
+Z_DRAG_PLANCK, Z_STAR_PLANCK = 1059.94, 1089.92
+RS_DRAG_CLASS = 1.470933e2 * 0.6736   # Mpc/h
 
 
 def check(ok, message):
@@ -122,10 +165,11 @@ def cuda_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def wall_ms(fn, reps=5):
+def wall_ms(fn, reps=5, warmup=True):
     """Median host wall time of ``fn`` ending in a synchronize, after a
-    warm-up call."""
-    fn()
+    warm-up call (``warmup=False``: the caller has just made one)."""
+    if warmup:
+        fn()
     walls = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -324,6 +368,110 @@ def bao_template(fftlog_kernel, rng, card):
         print(f'{name} (host): B={B_BAO_HOST} x {DESI_Z.size} z, card vs CPU {err:.3e} (bar {BAO_RTOL:g}), wall '
               f'{wall:.3f} ms (median of 3 after a warm-up) on {card}', flush=True)
         check(err <= BAO_RTOL, f'{name} on the card and the CPU disagree')
+    return launches
+
+
+def native_path(fftlog_kernel, rng, card):
+    """Phases 10-13: the native Boltzmann path. Returns the FFTLog kernel's
+    launches in its main-path runs (the DESI engine's sigma8)."""
+    from cosmoprimo_tpu_torch import Cosmology, make_native_pk_pipeline_batched
+    from cosmoprimo_tpu_torch.boltzmann import compute_thermodynamics
+    from cosmoprimo_tpu_torch.boltzmann.perturbations import linear_pk
+    from cosmoprimo_tpu_torch.fiducial import DESI
+
+    # 10. the full-width pipeline
+    params = cosmo_params(rng, B_NATIVE)
+    params_dev = [torch.from_numpy(p).to(DEVICE) for p in params]
+    fn, _ = make_native_pk_pipeline_batched(nk=NK_NATIVE, kmax=1.0, z=(0.0, 1.0))
+    torch.cuda.reset_peak_memory_stats()
+    fftlog_kernel.launches = 0
+    t0 = time.perf_counter()
+    pk, sigma8 = fn(*params_dev)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(tuple(pk.shape) == (B_NATIVE, 2, NK_NATIVE) and tuple(sigma8.shape) == (B_NATIVE,),
+          'native pipeline output shapes are wrong')
+    check(bool(torch.isfinite(pk).all()) and bool(torch.isfinite(sigma8).all()), 'native pipeline outputs are not finite')
+    wall = wall_ms(lambda: fn(*params_dev), reps=3, warmup=False)
+    print(f'native pipeline: B={B_NATIVE}, nk={NK_NATIVE}, kmax=1.0 h/Mpc (8192 + 4096 RK4 steps), z=[0, 1]: wall '
+          f'{wall:.1f} ms (median of 3 after the first call, {first * 1e3:.1f} ms), peak memory '
+          f'{peak_gb:.2f} GB, sigma8 range [{sigma8.min().item():.4f}, {sigma8.max().item():.4f}] on {card}',
+          flush=True)
+
+    # 11. the DESI fiducial at full knobs against the CLASS anchors; its
+    # sigma8 runs TophatVariance through the FFTLog kernel
+    fftlog_kernel.launches = 0
+    t0 = time.perf_counter()
+    desi = DESI(engine='native', extra_params={'nk_pk': 128})
+    fo, th = desi.get_fourier(), desi.get_thermodynamics()
+    sigma8_m, sigma8_cb = fo.sigma8_m.item(), fo.sigma8_cb.item()
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    launches = fftlog_kernel.launches
+    interp = fo.pk_interpolator()
+    k_bao = torch.from_numpy(K_H[BAO_BAND]).to(DEVICE)
+    pk0, pk1 = (interp(k_bao, torch.tensor([z], dtype=torch.float64, device=DEVICE))[:, 0].cpu().numpy()
+                for z in (0.0, 1.0))
+    errs = {'sigma8_m': abs(sigma8_m / SIGMA8_M_CLASS - 1), 'sigma8_cb': abs(sigma8_cb / SIGMA8_CB_CLASS - 1),
+            'pk(z=0)': np.max(np.abs(pk0 / PK_M_Z0[BAO_BAND] - 1)), 'pk(z=1)': np.max(np.abs(pk1 / PK_M_Z1[BAO_BAND] - 1))}
+    z_drag, z_star, rs_drag = th.z_drag.item(), th.z_star_noreion.item(), th.rs_drag.item()
+    tau = abs(th.tau_reio.item() - desi['tau_reio'].item())
+    print(f'native DESI engine (nk_pk=128, kmax_pk=10: 10240 + 6144 steps): built in {build:.1f} s on {card}; '
+          f'kernel launches {launches}; against CLASS: sigma8_m {sigma8_m:.6f} ({errs["sigma8_m"]:.2e}, bar 5e-3), '
+          f'sigma8_cb {sigma8_cb:.6f} ({errs["sigma8_cb"]:.2e}, bar 5e-3), P(k) in the BAO band z=0 '
+          f'{errs["pk(z=0)"]:.2e} and z=1 {errs["pk(z=1)"]:.2e} (bar 1.2e-2); z_drag {z_drag:.3f} (bar 2.0 from '
+          f'{Z_DRAG_PLANCK}), z_star_noreion {z_star:.3f} (bar 2.5 from {Z_STAR_PLANCK}), rs_drag {rs_drag:.4f} Mpc/h '
+          f'({abs(rs_drag / RS_DRAG_CLASS - 1):.2e}, bar 1.5e-3), tau_reio {tau:.1e} from its input (bar 1e-6)',
+          flush=True)
+    check(launches > 0, 'the native Fourier section did not launch the FFTLog kernel')
+    check(errs['sigma8_m'] < 5e-3 and errs['sigma8_cb'] < 5e-3, 'native sigma8 is off the CLASS values')
+    check(errs['pk(z=0)'] < 1.2e-2 and errs['pk(z=1)'] < 1.2e-2, 'native P(k) is off the CLASS values')
+    check(abs(z_drag - Z_DRAG_PLANCK) < 2.0 and abs(z_star - Z_STAR_PLANCK) < 2.5, 'native z_drag or z_star is off')
+    check(abs(rs_drag / RS_DRAG_CLASS - 1) < 1.5e-3 and tau < 1e-6, 'native rs_drag or tau_reio is off')
+
+    # 12. card against CPU, 4 cosmologies at kmax = 0.5 (2560 + 1280 steps)
+    params = cosmo_params(rng, B_NATIVE_CHECK)
+    fn, _ = make_native_pk_pipeline_batched(nk=NK_NATIVE, kmax=0.5, z=(0.0, 1.0))
+    scalars = ('z_drag', 'z_star', 'z_star_noreion', 'z_reio', 'rs_drag', 'rs_star')
+
+    def run(device):
+        p = [torch.from_numpy(v).to(device) for v in params]
+        th = Cosmology(omega_cdm=p[0], omega_b=p[1], h=p[2], n_s=p[3], logA=p[4], engine='native').get_thermodynamics()
+        return fn(*p), {name: getattr(th, name).cpu() for name in scalars}
+
+    (pk, sigma8), th_dev = run(DEVICE)
+    (pk_cpu, sigma8_cpu), th_cpu = run('cpu')
+    pk_err = (pk.cpu() / pk_cpu - 1).abs().max().item()
+    s8_err = (sigma8.cpu() / sigma8_cpu - 1).abs().max().item()
+    th_err = max((th_dev[name] / th_cpu[name] - 1).abs().max().item() for name in scalars)
+    print(f'native, card vs CPU, {B_NATIVE_CHECK} cosmologies, kmax=0.5: pk_m {pk_err:.3e}, sigma8 {s8_err:.3e} '
+          f'(bar {NATIVE_RTOL:g}), thermodynamics scalars {th_err:.3e} (bar {THERMO_RTOL:g})', flush=True)
+    check(pk_err <= NATIVE_RTOL and s8_err <= NATIVE_RTOL and th_err <= THERMO_RTOL, 'native card and CPU disagree')
+
+    # 13. graph replay against the eager loop, on the card, on the inputs of 12
+    p = [torch.from_numpy(v).to(DEVICE) for v in params]
+    cosmo = Cosmology(omega_cdm=p[0], omega_b=p[1], h=p[2], n_s=p[3], logA=p[4], engine='native')
+    ba, pp = cosmo.get_background(), cosmo.engine._perturbation_params()
+    k = torch.from_numpy(np.geomspace(1e-4, GRAPH_KMAX, NK_NATIVE)).to(DEVICE)
+    out = {}
+    for graphs in (True, False):
+        t0 = time.perf_counter()
+        thermo = compute_thermodynamics(cosmo['omega_b'], cosmo['h'], cosmo['T_cmb'], ba.efunc,
+                                        tau_reio=cosmo['tau_reio'], reionization_width=cosmo['reionization_width'],
+                                        N_eff=cosmo['N_eff'], graphs=graphs)
+        out[graphs] = (thermo.x_e, linear_pk(pp, thermo, k, [0.0, 1.0], n_steps=GRAPH_N_STEPS,
+                                             graphs=graphs)['pk_m'])
+        torch.cuda.synchronize()
+        out[graphs] += (time.perf_counter() - t0,)
+    x_err = ((out[True][0] - out[False][0]).abs() / out[False][0].abs()).max().item()
+    pk_err = ((out[True][1] - out[False][1]).abs() / out[False][1].abs()).max().item()
+    print(f'native, CUDA graphs vs eager on the card, {B_NATIVE_CHECK} cosmologies, kmax={GRAPH_KMAX}, n_steps='
+          f'{GRAPH_N_STEPS}: x_e {x_err:.3e}, pk_m '
+          f'{pk_err:.3e} (bar {GRAPH_RTOL:g}); wall {out[True][2]:.2f} s with graphs, {out[False][2]:.2f} s eagerly '
+          f'on {card}', flush=True)
+    check(bool(torch.isfinite(out[False][1]).all()), 'the eager loop at GRAPH_N_STEPS is not finite')
+    check(x_err <= GRAPH_RTOL and pk_err <= GRAPH_RTOL, 'the graph replay disagrees with the eager loop')
     return launches
 
 
@@ -531,6 +679,9 @@ def main():
     gbytes = 2 * B * NK * 8 / 1e9
     print(f'informational: the kernel moves {gbytes:.4f} GB at the headline shape, {gbytes / kernel_ms:.3f} TB/s, '
           f'{gbytes / kernel_ms / HBM_TB_S:.1%} of {HBM_TB_S} TB/s', flush=True)
+
+    # 10-13. the native Boltzmann path
+    launches += native_path(fftlog_kernel, rng, card)
 
     print(json.dumps({'kernels': [{
         'name': 'fftlog_core', 'route': 'cuda', 'source': 'cosmoprimo_tpu_torch/csrc/fftlog_core.cu',

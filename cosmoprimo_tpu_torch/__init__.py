@@ -15,6 +15,6 @@ from .interpolator import (CorrelationFunctionInterpolator1D, CorrelationFunctio
                            integrate_sigma_r2)
 from .models.halofit import halofit, halofit_pk_interpolator
 from .models.hmcode import hmcode2020, hmcode_pk_interpolator
-from .pipelines import apply_non_linear, make_pk_to_xi_pipeline_batched
+from .pipelines import apply_non_linear, make_native_pk_pipeline_batched, make_pk_to_xi_pipeline_batched
 
 __version__ = '0.1.0'

@@ -33,7 +33,7 @@ import torch
 
 from .cosmology import Cosmology
 from .interpolator import CorrelationFunctionInterpolator2D, PowerSpectrumInterpolator2D
-from .ops import cubic_eval_rows, interp, natural_cubic_coeffs, natural_cubic_coeffs_rows, simpson
+from .ops import cubic_eval_rows, interp, linspace_rows, natural_cubic_coeffs, natural_cubic_coeffs_rows, simpson
 from .utils import LeastSquareSolver, fit_operator
 
 _FIDUCIAL_RS_DRAG = 100.91463132327911  # DESI fiducial, Mpc/h
@@ -74,16 +74,6 @@ def _edge_constraint_gradient(gradient):
     numpy ``gradient``: (nbasis, 4)."""
     return np.column_stack([gradient[..., 0], gradient[..., 1] - gradient[..., 0],
                             gradient[..., -1], gradient[..., -2] - gradient[..., -1]])
-
-
-def _linspace_rows(start, stop, num):
-    """``jnp.linspace(start, stop, num)`` for per-row ``start`` / ``stop``
-    (broadcast tensors or floats): (..., num)."""
-    t = torch.arange(num, dtype=torch.float64) / max(num - 1, 1)
-    start, stop = torch.as_tensor(start, dtype=torch.float64), torch.as_tensor(stop, dtype=torch.float64)
-    t = t.to(start.device)
-    out = start[..., None] * (1 - t) + stop[..., None] * t
-    return torch.cat([out[..., :-1], stop[..., None].expand(out.shape[:-1] + (1,))], dim=-1) if num > 1 else out
 
 
 class _BaseBAOFilter(object):
@@ -532,9 +522,9 @@ class PeakAveragePowerSpectrumBAOFilter(_NeedsFiducial, BasePowerSpectrumBAOFilt
         one = torch.ones_like(rescale)
         knots = []
         for k_peaks, npad in zip(self._k_peaks, self.pad_peaks):
-            rescales = torch.cat([_linspace_rows(one, rescale, npad[0]),
+            rescales = torch.cat([linspace_rows(one, rescale, npad[0]),
                                   rescale[..., None].expand(rescale.shape + (npad[1],)),
-                                  _linspace_rows(rescale, one, npad[2])], dim=-1)
+                                  linspace_rows(rescale, one, npad[2])], dim=-1)
             knots.append((k_peaks / rescales).expand(self.pk.shape[:1] + k_peaks.shape))
         pknow = self._per_row(self._pknow_eh(self._k), 1)
         self.pknow = self._interp(*knots, self.pk / pknow) * pknow

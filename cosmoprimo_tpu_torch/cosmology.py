@@ -291,6 +291,23 @@ def _split_hierarchy(total, masses, dm21, dm31):
     return list(for_cond_loop(0, 1000, cond, body, (*masses, masses[0] + masses[1] + masses[2]))[:3])
 
 
+def _compute_rs_cosmomc(omega_b, omega_m, hubble_function_rows):
+    """Sound horizon (proper Mpc) and z_star in the CosmoMC fitting-formula
+    approximation, per row: ``hubble_function_rows`` maps batch + (m,)
+    redshifts to H in km/s/Mpc."""
+    zstar = 1048 * (1 + 0.00124 * omega_b ** (-0.738)) \
+        * (1 + (0.0783 * omega_b ** (-0.238) / (1 + 39.5 * omega_b ** 0.763))
+           * omega_m ** (0.560 / (1 + 21.1 * omega_b ** 1.81)))
+    astar = 1.0 / (1 + zstar)
+
+    def dsoundda(a):
+        dtauda = 1.0 / (a ** 2 * hubble_function_rows(1 / a - 1.0) / (constants.c / 1e3))
+        R = 3e4 * a * omega_b[..., None]
+        return dtauda * (3 * (1 + R)) ** (-0.5)
+
+    return romberg(dsoundda, 1e-8, astar, divmax=15, epsabs=1e-7, epsrel=1e-7), zstar
+
+
 def compile_params(args, engine=None, device=None):
     """Normalize input parameters to the internal basis: H0->h, omega->Omega,
     logA->A_s, Omega_g->T_cmb; resolve the neutrino sector (the Omega_ncdm
@@ -577,6 +594,7 @@ _ENGINE_REGISTRY = {}
 _ENGINE_MODULES = {
     'eisenstein_hu': 'models.eisenstein_hu',
     'eisenstein_hu_nowiggle': 'models.eisenstein_hu_nowiggle',
+    'native': 'models.native',
 }
 
 
@@ -955,10 +973,28 @@ class BaseBackground(BaseSection):
         return (self.Omega0_de[..., None] * (1 + z) ** (3.0 * (w0 + wa))
                 * torch.exp(3.0 * wa * (1.0 / (1 + z) - 1)) * constants.rho_crit_over_Msunph_per_Mpcph3)
 
+    def _closed(self, name, z):
+        """The closed-form density ``name`` at ``z`` of either layout: (n,),
+        every row at every redshift, or batch + (n,), each row at its own;
+        batch + (n,) out."""
+        return getattr(BaseBackground, name).__wrapped__(self, z)
+
+    def _rho_tot(self, z, rho_ncdm_tot):
+        """The sum of the background's content at ``z`` (either layout of
+        :meth:`_closed`), the massive neutrinos' ``rho_ncdm_tot`` given in
+        the layout of the result."""
+        m = self._closed('rho_cdm', z) + self._closed('rho_b', z) + rho_ncdm_tot
+        r = self._closed('rho_g', z) + self._closed('rho_ur', z)
+        return m + r + self._closed('rho_de', z)
+
+    def _efunc(self, z, rho_ncdm_tot):
+        """E(z) from :meth:`_rho_tot` and the curvature, in the same layout."""
+        rho_crit = self._rho_tot(z, rho_ncdm_tot) + self._closed('rho_k', z)
+        return torch.sqrt(rho_crit * (1 + z) ** 3 / constants.rho_crit_over_Msunph_per_Mpcph3)
+
+    @flatarray()
     def rho_tot(self, z):
-        m = self.rho_cdm(z) + self.rho_b(z) + self.rho_ncdm_tot(z)
-        r = self.rho_g(z) + self.rho_ur(z)
-        return m + r + self.rho_de(z)
+        return self._rho_tot(z, self.rho_ncdm_tot(z))
 
     def rho_crit(self, z):
         return self.rho_tot(z) + self.rho_k(z)
@@ -966,7 +1002,7 @@ class BaseBackground(BaseSection):
     # ---- expansion
     @flatarray()
     def efunc(self, z):
-        return torch.sqrt(self.rho_crit(z) * (1 + z) ** 3 / constants.rho_crit_over_Msunph_per_Mpcph3)
+        return self._efunc(z, self.rho_ncdm_tot(z))
 
     @flatarray()
     def hubble_function(self, z):
@@ -1057,15 +1093,20 @@ class BaseBackground(BaseSection):
         return self.angular_diameter_distance(z) * (1.0 + z) ** 2
 
     def rs(self, z):
-        """Sound horizon at the scalar redshift ``z``, in Mpc/h (CAMB's
-        dsoundda integrand, Romberg with 15 refinements): the batch shape."""
+        """Sound horizon at redshift ``z``, in Mpc/h (CAMB's dsoundda
+        integrand, Romberg with 15 refinements): the batch shape. ``z`` is a
+        scalar, or a tensor of the batch shape (one redshift per row, for a
+        background with :meth:`hubble_function_rows`)."""
+        rows = isinstance(z, torch.Tensor) and z.dim() > 0
+        hubble = self.hubble_function_rows if rows else self.hubble_function
+
         def dsoundda(a):
-            dtauda = 1.0 / (a ** 2 * self.hubble_function(1 / a - 1.0) / (constants.c / 1e3))
+            dtauda = 1.0 / (a ** 2 * hubble(1 / a - 1.0) / (constants.c / 1e3))
             R = 3 / 4.0 * a * (self.Omega0_b / self.Omega0_g)[..., None]
             return dtauda * (3 * (1 + R)) ** (-0.5)
 
-        return romberg(dsoundda, 1e-8, 1.0 / (1 + float(z)), divmax=15, epsabs=1e-7, epsrel=1e-7,
-                       device=self.device) * self.h
+        astar = 1.0 / (1 + z) if rows else 1.0 / (1 + float(z))
+        return romberg(dsoundda, 1e-8, astar, divmax=15, epsabs=1e-7, epsrel=1e-7, device=self.device) * self.h
 
 @functools.lru_cache(maxsize=None)
 def _z_interp_tensor(name, device):
@@ -1102,16 +1143,19 @@ class DefaultBackground(BaseBackground):
             self._cache[name] = build()
         return self._cache[name]
 
-    def _ncdm_table(self, out, z, species):
-        if self.N_ncdm == 0:
-            return z.new_zeros((0,) + self.h.shape + z.shape)
-
+    def _ncdm_interpolator(self, out):
+        """The ncdm density ('rho') or pressure ('p') table: (N_ncdm,) + batch columns."""
         def build():
             zc = _z_interp_tensor(f'{out}_ncdm', self.device)
             fun = BaseBackground.rho_ncdm if out == 'rho' else BaseBackground.p_ncdm
             return Interpolator1D(zc, torch.movedim(fun(self, zc), -1, 0), extrap=True, assume_sorted=True)
 
-        out = torch.movedim(self._table(f'{out}_ncdm', build)(z), 0, -1)
+        return self._table(f'{out}_ncdm', build)
+
+    def _ncdm_table(self, out, z, species):
+        if self.N_ncdm == 0:
+            return z.new_zeros((0,) + self.h.shape + z.shape)
+        out = torch.movedim(self._ncdm_interpolator(out)(z), 0, -1)
         return out if species is None else out[species]
 
     @flatarray()
@@ -1145,15 +1189,36 @@ class DefaultBackground(BaseBackground):
             self._cache['age'] = (tmp[..., -1] - tmp[..., 0]) / self.h / constants.gigayear_over_megaparsec
         return self._cache['age']
 
-    @flatarray()
-    def comoving_radial_distance(self, z):
-        r"""Comoving radial distance, in Mpc/h (astro-ph/9905116 eq. 15)."""
+    def _distance_interpolator(self):
         def build():
             zc = _z_interp_tensor('comoving_radial_distance', self.device)
             tmp = cumquad_rk4(lambda y, zz: constants.c / 1e3 / (100.0 * self.efunc(zz)), 0.0, zc)
             return Interpolator1D(zc, torch.movedim(tmp, -1, 0), assume_sorted=True)
 
-        return torch.movedim(self._table('comoving_radial_distance', build)(z), 0, -1)
+        return self._table('comoving_radial_distance', build)
+
+    @flatarray()
+    def comoving_radial_distance(self, z):
+        r"""Comoving radial distance, in Mpc/h (astro-ph/9905116 eq. 15)."""
+        return torch.movedim(self._distance_interpolator()(z), 0, -1)
+
+    # ---- at redshifts that differ by row: ``z`` is batch + (m,), and so is
+    # the result, row b at its own z[b] (the functions above evaluate every
+    # row at every z)
+    def efunc_rows(self, z):
+        """E(z) = H(z)/H0 per row."""
+        ncdm = z.new_zeros(z.shape)
+        if self.N_ncdm:
+            ncdm = torch.sum(self._ncdm_interpolator('rho').columns(z), dim=0)
+        return self._efunc(z, ncdm)
+
+    def hubble_function_rows(self, z):
+        """H(z) per row, in km/s/Mpc."""
+        return self.efunc_rows(z) * self.H0[..., None]
+
+    def comoving_transverse_distance_rows(self, z):
+        """Comoving transverse distance per row, in Mpc/h."""
+        return self._curved(self._distance_interpolator().columns(z)) / (1 + z) * (1.0 + z)
 
     def _growth_tables(self, mass='m'):
         """Interpolators of D(z) and f(z) from the growth ODE

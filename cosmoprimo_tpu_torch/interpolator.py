@@ -241,8 +241,11 @@ class PowerSpectrumInterpolator1D(_BaseInterpolator):
             self.extrap_kmin, self.extrap_kmax = extrap_kmin, extrap_kmax
             kk, pp = _pad_log(kk, pp, extrap_kmin=extrap_kmin, extrap_kmax=extrap_kmax)
             kk, pp = 10 ** kk, 10 ** pp
+        # the range is masked on the query k (__call__): the spline's own
+        # knots are 10**log10(k), which rounding on the card can move past the
+        # end points
         self._interp = Interpolator1D(kk, pp, k=self.interp_order_k, interp_x=self.interp_k,
-                                      interp_fun=self.extrap_pk, assume_sorted=True)
+                                      interp_fun=self.extrap_pk, extrap=True, assume_sorted=True)
         self.is_from_callable = False
 
     @classmethod
@@ -278,11 +281,9 @@ class PowerSpectrumInterpolator1D(_BaseInterpolator):
         k = torch.as_tensor(k, dtype=torch.float64, device=self.device)
         shape = k.shape
         k = k.reshape(-1)
-        if self.is_from_callable:
-            mask = (k >= self.extrap_kmin) & (k <= self.extrap_kmax)
-            tmp = torch.where(mask, self._interp(k), torch.nan)
-        else:
-            tmp = self._interp(k).movedim(0, -1)
+        mask = (k >= self.extrap_kmin) & (k <= self.extrap_kmax)
+        tmp = self._interp(k) if self.is_from_callable else self._interp(k).movedim(0, -1)
+        tmp = torch.where(mask, tmp, torch.nan)
         tmp = tmp * batch_scalar(self._rsigma8sq, 1)
         return tmp.reshape(tmp.shape[:-1] + shape)
 
@@ -353,14 +354,15 @@ class PowerSpectrumInterpolator2D(_BaseInterpolator):
             kk, pp = 10 ** kk, 10 ** pp
         self._is2d = pk.shape[-1] > 1
         if self._is2d:
+            # as in 1D, the (k, z) range is masked on the query (__call__)
             self._interp = Interpolator2D(kk, _on(self.device, self.z), pp, kx=self.interp_order_k,
                                           ky=min(self.interp_order_z, 3), interp_x=self.interp_k,
-                                          interp_fun=self.extrap_pk, assume_sorted=True)
+                                          interp_fun=self.extrap_pk, extrap=True, assume_sorted=True)
         else:
             if growth_factor_sq is None:
                 raise ValueError('provide either 2D pk array or growth_factor_sq')
             self._interp = Interpolator1D(kk, pp[:, 0], k=self.interp_order_k, interp_x=self.interp_k,
-                                          interp_fun=self.extrap_pk, assume_sorted=True)
+                                          interp_fun=self.extrap_pk, extrap=True, assume_sorted=True)
 
     @classmethod
     def from_callable(cls, k=None, z=None, pk_callable=None, growth_factor_sq=None,

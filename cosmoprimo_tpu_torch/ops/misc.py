@@ -46,3 +46,15 @@ def batch_scalar(value, n=1):
     """A per-cosmology scalar (a float, or a tensor of the batch shape) with
     ``n`` trailing axes, to broadcast against per-z or per-(z, k) tables."""
     return value[(...,) + (None,) * n] if isinstance(value, torch.Tensor) else value
+
+
+def linspace_rows(start, stop, num):
+    """``jnp.linspace(start, stop, num)`` for per-row ``start`` / ``stop``
+    (broadcast tensors or floats), in the JAX package's arithmetic:
+    start (1 - t) + stop t, t = i / (num - 1), the last point ``stop``.
+    Returns (..., num)."""
+    t = torch.arange(num, dtype=torch.float64) / max(num - 1, 1)
+    start, stop = torch.as_tensor(start, dtype=torch.float64), torch.as_tensor(stop, dtype=torch.float64)
+    t = t.to(start.device)
+    out = start[..., None] * (1 - t) + stop[..., None] * t
+    return torch.cat([out[..., :-1], stop[..., None].expand(out.shape[:-1] + (1,))], dim=-1) if num > 1 else out

@@ -64,22 +64,31 @@ def trapezoid_weights(x):
 
 
 def romberg(function, a, b, epsabs=1e-8, epsrel=1e-8, divmax=10, device=None):
-    """Romberg integration of ``function`` over [a, b] (Python floats) with
-    ``divmax`` refinements. ``function(x)`` takes a 1D tensor of abscissae on
-    ``device`` and returns (..., x.size), the batch leading; the result has
-    the batch shape. Where the last two diagonal entries disagree by more
-    than ``epsabs`` or ``epsrel``, that row is NaN: nothing is checked on
-    the host."""
+    """Romberg integration of ``function`` over [a, b] with ``divmax``
+    refinements. ``a`` is a Python float. With ``b`` a Python float,
+    ``function(x)`` takes a 1D tensor of abscissae on ``device`` and returns
+    (..., x.size), the batch leading; with ``b`` a tensor of the batch shape
+    (an upper limit per row), it takes the abscissae of each row, batch +
+    (m,), and returns the same shape. The result has the batch shape. Where
+    the last two diagonal entries disagree by more than ``epsabs`` or
+    ``epsrel``, that row is NaN: nothing is checked on the host."""
+    rows = isinstance(b, torch.Tensor)
+    if rows:   # the batch leads, then one axis for the abscissae
+        device, b = b.device, b[..., None]
+        ends = function(torch.cat([torch.full_like(b, a), b], dim=-1))
+    else:
+        ends = function(torch.tensor([a, b], dtype=torch.float64, device=device))
     interval_size = b - a
-    ends = function(torch.tensor([a, b], dtype=torch.float64, device=device))
     ordsum = 0.5 * (ends[..., 0] + ends[..., 1])
+    if rows:
+        ordsum = ordsum[..., None]
     last_row = [interval_size * ordsum]
     n = 1
     for i in range(1, divmax + 1):
         n *= 2
         h = interval_size / (n // 2)
         points = a + (torch.arange(n // 2, dtype=torch.float64, device=device) + 0.5) * h
-        ordsum = ordsum + torch.sum(function(points), dim=-1)
+        ordsum = ordsum + torch.sum(function(points), dim=-1, keepdim=rows)
         row = [interval_size * ordsum / n]
         for k in range(1, i + 1):
             pow4 = 4.0 ** k
@@ -87,7 +96,8 @@ def romberg(function, a, b, epsabs=1e-8, epsrel=1e-8, divmax=10, device=None):
         err = torch.abs(last_row[i - 1] - row[i])
         last_row = row
     result = last_row[divmax]
-    return torch.where((err < epsabs) & (err < torch.abs(result) * epsrel), result, torch.nan)
+    result = torch.where((err < epsabs) & (err < torch.abs(result) * epsrel), result, torch.nan)
+    return result[..., 0] if rows else result
 
 
 @functools.lru_cache(maxsize=32)
@@ -100,3 +110,21 @@ def leggauss(n):
 def gauss_laguerre_nodes(n):
     """Gauss-Laguerre nodes and weights (numpy, made once)."""
     return np.polynomial.laguerre.laggauss(n)
+
+
+def cumsum_blocked(x):
+    """Cumulative sum along the last axis in XLA's order on the CPU: the sum
+    within blocks of 16 values, plus the exclusive cumulative sum of
+    the blocks' totals, made the same way. The JAX package's time grids and
+    optical depths are cumulative sums of ~1e4 terms; summed in this order
+    the port's land on the same bits, where a running sum drifts by ~1e-14
+    (and moves the fetched coefficients by ~1e-12)."""
+    n, block = x.shape[-1], 16
+    if n <= block:
+        return torch.cumsum(x, dim=-1)
+    nb = -(-n // block)
+    pad = torch.nn.functional.pad(x, (0, nb * block - n)).reshape(x.shape[:-1] + (nb, block))
+    within = torch.cumsum(pad, dim=-1)
+    totals = cumsum_blocked(within[..., -1])
+    before = torch.cat([torch.zeros_like(totals[..., :1]), totals[..., :-1]], dim=-1)
+    return (within + before[..., None]).reshape(x.shape[:-1] + (nb * block,))[..., :n]

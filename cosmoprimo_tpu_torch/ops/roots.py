@@ -1,5 +1,6 @@
-"""Batched fixed-cap loops (cosmoprimo_tpu/ops/roots.py::for_cond_loop), for
-the Newton iterations of the neutrino sector."""
+"""Batched fixed-cap loops and root finding (cosmoprimo_tpu/ops/roots.py::
+for_cond_loop and bisect), for the Newton iterations of the neutrino sector
+and the reionization redshift."""
 
 import torch
 
@@ -26,3 +27,63 @@ def for_cond_loop(lower, upper, cond_fun, body_fun, init_val):
         new = body_fun(i, val)
         val = tuple(torch.where(active, n, v) for n, v in zip(new, val))
     return val
+
+
+def bisect(f, limits, flimits=None, xtol=1e-6, maxiter=100, method='ridders'):
+    """Root of ``f`` in ``limits`` = (a, b), per row: Ridders' method by
+    default, else plain bisection. ``f`` maps a tensor of the batch shape to
+    one of the same shape; ``a`` and ``b`` are floats or such tensors.
+
+    Each row iterates until its bracket is narrower than ``xtol`` (the JAX
+    rule: Ridders tests the width before its last update) or ``maxiter``. An
+    end point with f = 0 is the root. A row whose f(a), f(b) have the same
+    sign is NaN, where the JAX package raises outside a trace."""
+    a, b = limits
+    fa, fb = flimits if flimits is not None else (f(a), f(b))
+    a, b = (torch.as_tensor(v, dtype=fa.dtype, device=fa.device).expand(fa.shape) for v in (a, b))
+    sign = torch.where((fa < 0) & (fb > 0), 1.0, torch.where((fa > 0) & (fb < 0), -1.0, 0.0))
+    # an end point exactly on the root is a degenerate but valid bracket
+    has_endpoint_root = (fa == 0) | (fb == 0)
+    endpoint_root = torch.where(fa == 0, a, torch.where(fb == 0, b, torch.nan))
+    width0 = torch.full_like(fa, 1.0 + xtol)
+
+    if method == 'ridders':
+
+        def body(i, state):
+            xlow, flow, xhigh, fhigh, _, _ = state
+            mid = 0.5 * (xlow + xhigh)
+            fmid = f(mid)
+            s = torch.sqrt(fmid * fmid - flow * fhigh)
+            sgn = torch.where(flow >= 0.0, 1.0, -1.0)
+            # s == 0: an iterate hit the root exactly; keep mid, not 0/0
+            step = torch.where(s > 0, (mid - xlow) * sgn * fmid / torch.where(s > 0, s, 1.0), 0.0)
+            new = mid + step
+            fnew = f(new)
+            keep_mid = fmid * fnew <= 0
+            keep_low = flow * fnew < 0
+            xlow_n = torch.where(keep_mid, mid, torch.where(keep_low, xlow, new))
+            flow_n = torch.where(keep_mid, fmid, torch.where(keep_low, flow, fnew))
+            xhigh_n = torch.where(keep_mid | keep_low, new, xhigh)
+            fhigh_n = torch.where(keep_mid | keep_low, fnew, fhigh)
+            return xlow_n, flow_n, xhigh_n, fhigh_n, xhigh - xlow, new
+
+        init = (a, fa, b, fb, width0, 0.5 * (a + b))
+    else:
+
+        def body(i, state):
+            low, high, x, _ = state
+            too_large = sign * f(x) > 0
+            high = torch.where(too_large, x, high)
+            low = torch.where(too_large, low, x)
+            return low, high, 0.5 * (low + high), high - low
+
+        init = (a, b, 0.5 * (a + b), width0)
+    width = 4 if method == 'ridders' else 3
+
+    def cond(i, state):
+        return torch.abs(state[width]) > xtol
+
+    state = for_cond_loop(0, maxiter, cond, body, init)
+    new = state[5] if method == 'ridders' else state[2]
+    new = torch.where(has_endpoint_root, endpoint_root, new)
+    return torch.where((sign == 0) & ~has_endpoint_root, torch.nan, new)

@@ -128,6 +128,23 @@ class Interpolator1D(object):
             tmp = torch.where(mask.reshape((-1,) + (1,) * (tmp.dim() - 1)), tmp, torch.nan)
         return tmp.reshape(toret_shape)
 
+    def columns(self, x):
+        """Each column of ``fun`` at its own abscissae (cubic only): ``x``
+        broadcasts against the columns' shape + (m,), and so does the result
+        (the value of :meth:`__call__` at those points, for that column)."""
+        if self.k != 3:
+            raise NotImplementedError('columns() evaluates the cubic interpolator only')
+        x = torch.as_tensor(x, dtype=torch.float64, device=self._kx.device)
+        shape = self.shape + x.shape[-1:]
+        x = x.expand(shape).reshape(-1, shape[-1])           # (columns, m)
+        tx = torch.log10(x) if self.interp_x == 'log' else x
+        tmp = cubic_eval_rows(self._kx, self._kf.T, self._kM.T, tx.contiguous())
+        if self.interp_fun == 'log':
+            tmp = 10**tmp
+        if not self.extrap:
+            tmp = torch.where((x >= self.xmin) & (x <= self.xmax), tmp, torch.nan)
+        return tmp.reshape(shape)
+
 
 def interp(x, xp, fp):
     """Linear interpolation along the last axis with ``jnp.interp``

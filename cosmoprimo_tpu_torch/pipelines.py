@@ -1,6 +1,7 @@
-"""The batched pk -> xi pipeline (cosmoprimo_tpu/pipelines.py::
-make_pk_to_xi_pipeline_batched and apply_non_linear), linear or through
-halofit or HMcode-2020."""
+"""The batched pipelines (cosmoprimo_tpu/pipelines.py): the pk -> xi
+pipeline (make_pk_to_xi_pipeline_batched and apply_non_linear), linear or
+through halofit or HMcode-2020, and the native Boltzmann P(k) pipeline
+(make_native_pk_pipeline_batched)."""
 
 import functools
 
@@ -84,3 +85,33 @@ def make_pk_to_xi_pipeline_batched(nk=1024, kmin=1e-5, kmax=1e2, engine='eisenst
         return xi, chi, sigma8
 
     return fn, k_np, np.asarray(p2c.y[0])
+
+
+def make_native_pk_pipeline_batched(nk=256, kmax=1.0, z=(0.0, 1.0)):
+    """Build (fn, k): ``fn(omega_cdm, omega_b, h, n_s, logA)``, each a (B,)
+    float64 tensor, runs the native chain for the whole batch on their
+    device: the recombination history, the MB95 hierarchy on ``nk``
+    log-spaced k in [1e-4, kmax] h/Mpc (lanes (B, nk)) and the primordial
+    assembly. Returns pk_m (B, nz, nk) [(Mpc/h)^3] at ``z`` and sigma8 (B,),
+    a static-weight Simpson sum over the same k grid; ``k`` is numpy."""
+    from .boltzmann.perturbations import linear_pk, steps_for_kmax
+
+    n_steps = steps_for_kmax(kmax)   # kmax in h/Mpc bounds kmax in 1/Mpc
+    k_np = np.geomspace(1e-4, kmax, nk)
+    z = list(np.atleast_1d(np.asarray(z, dtype=np.float64)))
+    w8_np = k_np ** 3 * kernel_tophat2(torch.from_numpy(8.0 * k_np)).numpy()
+    iz0 = int(np.argmin(np.abs(np.asarray(z))))
+
+    @functools.lru_cache(maxsize=None)
+    def grids(device):
+        return tuple(torch.from_numpy(array).to(device) for array in (k_np, np.log(k_np), w8_np))
+
+    def fn(omega_cdm, omega_b, h, n_s, logA):
+        k, lnk, w8 = grids(omega_cdm.device)
+        cosmo = Cosmology(omega_cdm=omega_cdm, omega_b=omega_b, h=h, n_s=n_s, logA=logA, engine='native')
+        th = cosmo.get_thermodynamics().table
+        pkz = linear_pk(cosmo.engine._perturbation_params(), th, k, z, n_steps=n_steps)['pk_m']
+        sigma8 = torch.sqrt(simpson(pkz[:, iz0] * w8, x=lnk) / (2.0 * np.pi ** 2))
+        return pkz, sigma8
+
+    return fn, k_np

@@ -1,9 +1,9 @@
-"""Per-stage device profile of the halofit, HMcode and BAO-template paths on
-one CUDA card:
+"""Per-stage device profile of the halofit, HMcode, BAO-template and native
+Boltzmann paths on one CUDA card:
 
-    python3 -m cosmoprimo_tpu_torch.stage_profile [halofit] [HMcode] [BAO]
+    python3 -m cosmoprimo_tpu_torch.stage_profile [halofit] [HMcode] [BAO] [native]
 
-(all three without an argument).
+(all four without an argument).
 
 For each stage (set-up, linear P(k), the sigma^2 matmul, halofit's Newton
 block, HMcode's growth ODE, dewiggle and one-halo NFW tensor, the whole
@@ -18,8 +18,16 @@ B = 4096 cosmologies with one massive neutrino species, nk = 1024, the
 seven DESI DR1 redshifts and the DESI fiducial: the set-up, the P(k) table
 on the filters' grid, each traced filter, to_xi of the smooth and of the
 linear spectrum, kirkby2013 and to_pk, then one peakaverage filter and
-to_xi as a whole. Parameters are drawn from a seed. Informational only: it
-checks nothing, and prints the card's name and power limit.
+to_xi as a whole. The native path (make_native_pk_pipeline_batched at
+B = 64, nk = 256, kmax = 1.0, z = [0, 1]) by stage: set-up, thermodynamics,
+tables and grids, phase A, phase B, assembly and sigma8, each with CUDA
+graphs and eagerly: the loops' device ms and launches per step under
+torch.profiler on an eager slice of 256 steps (a full phase is millions of
+launches), their stream ms over the whole stage (CUDA events; eagerly, the
+slice's per step times the steps), and the device's busy share; the
+recombination scan is timed, not profiled. Parameters
+are drawn from a seed. Informational only: it checks nothing, and prints the
+card's name and power limit.
 """
 
 import subprocess
@@ -29,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from . import Cosmology, PowerToCorrelation, constants, make_pk_to_xi_pipeline_batched
+from . import Cosmology, PowerToCorrelation, constants, make_native_pk_pipeline_batched, make_pk_to_xi_pipeline_batched
 from .models import halofit, hmcode
 from .pipelines import apply_non_linear
 
@@ -160,8 +168,87 @@ def bao_stages(n, rng):
     return out, lambda: pk_filter('peakaverage')().smooth_pk_interpolator().to_xi()
 
 
+def stream_ms(fn):
+    """Stream ms of one call of ``fn`` between CUDA events (no warm-up)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def native_profile(card, n=64, nk=256, kmax=1.0, z=(0.0, 1.0), rng=None, slice_steps=256):
+    """Print the native path's stages, with CUDA graphs and eagerly."""
+    from .boltzmann import compute_thermodynamics
+    from .boltzmann import perturbations as P
+    from .interpolator import kernel_tophat2
+    from .ops import simpson
+    params = [torch.from_numpy(p).to(DEVICE) for p in (
+        rng.uniform(0.11, 0.13, n), rng.uniform(0.021, 0.023, n), rng.uniform(0.65, 0.70, n),
+        rng.uniform(0.94, 0.98, n), rng.uniform(2.9, 3.1, n))]
+    k_np = np.geomspace(1e-4, kmax, nk)
+    k = torch.from_numpy(k_np).to(DEVICE)
+    w8 = torch.from_numpy(k_np ** 3 * kernel_tophat2(torch.from_numpy(8.0 * k_np)).numpy()).to(DEVICE)
+    n_steps = P.steps_for_kmax(kmax)
+
+    def setup():
+        omega_cdm, omega_b, h, n_s, logA = params
+        cosmo = Cosmology(omega_cdm=omega_cdm, omega_b=omega_b, h=h, n_s=n_s, logA=logA, engine='native')
+        return cosmo, cosmo.engine._perturbation_params()
+
+    cosmo, pp = setup()
+    ba = cosmo.get_background()
+    kk = k * pp['h'][:, None]
+
+    def thermo(graphs):
+        return compute_thermodynamics(cosmo['omega_b'], cosmo['h'], cosmo['T_cmb'], ba.efunc, tau_reio=cosmo['tau_reio'],
+                                      reionization_width=cosmo['reionization_width'], N_eff=cosmo['N_eff'],
+                                      graphs=graphs)
+
+    th = thermo(True)
+    run = P._setup(pp, th, kk, list(z), n_steps)
+    yA, outA = P._phase_a(run, True)
+    outB = P._phase_b(run, yA, True)
+
+    def assembly():
+        pk = P._assemble(run, outA, outB)['delta_m']
+        return torch.sqrt(simpson(pk[:, 0] * w8, x=torch.log(k)) / (2.0 * np.pi ** 2))
+
+    once = {'set-up (Cosmology, solver parameters)': setup,
+            'tables and grids (build_tables, time grids, initial state)': lambda: P._setup(pp, th, kk, list(z), n_steps),
+            'assembly and sigma8': assembly}
+    for name, fn in once.items():
+        busy, _, _, launches, _ = profile_events(fn)
+        print(f'stage, native B={n} nk={nk}: {name}: device {busy:.4f} ms in {launches} launches, stream '
+              f'{stream_ms(fn):.3f} ms on {card}', flush=True)
+    # the recombination scan (6144 steps, ~370 launches each) is timed whole, not profiled
+    for graphs in (True, False):
+        print(f'stage, native B={n} nk={nk}: thermodynamics (recombination scan, 6144 steps), '
+              f'{"graphs" if graphs else "eager"}: stream {stream_ms(lambda: thermo(graphs)):.1f} ms on {card}',
+              flush=True)
+    loops = {'phase A': (lambda r, g: P._phase_a(r, g), 'eta_A', n_steps[0]),
+             'phase B': (lambda r, g: P._phase_b(r, yA, g), 'eta_B', n_steps[1])}
+    for name, (fn, grid, steps) in loops.items():
+        # profiled eagerly on a slice (a graph is captured anew in every call,
+        # and capture is kept out of the profiler); the replayed graph runs the
+        # same kernels, so its busy share is their device time over its stream time
+        part = {**run, grid: run[grid][:slice_steps + 1]}
+        busy, _, _, launches, _ = profile_events(lambda: fn(part, False))
+        busy, launches = busy / slice_steps, launches / slice_steps
+        eager = stream_ms(lambda: fn(part, False)) * steps / slice_steps
+        graph = stream_ms(lambda: fn(run, True))
+        print(f'stage, native B={n} nk={nk}: {name} ({steps} steps): device {busy:.4f} ms and {launches:.1f} '
+              f'launches a step (profiled eagerly on {slice_steps} steps); stream {graph:.1f} ms with graphs (device '
+              f'busy {busy * steps / graph:.1%}), {eager:.1f} ms eagerly (the slice scaled; busy '
+              f'{busy * steps / eager:.1%}) on {card}', flush=True)
+    fn, _ = make_native_pk_pipeline_batched(nk=nk, kmax=kmax, z=z)
+    wall = wall_ms(lambda: fn(*params), reps=1)
+    print(f'native pipeline B={n} nk={nk} kmax={kmax}: wall {wall:.1f} ms with CUDA graphs on {card}', flush=True)
+
+
 def main(argv=()):
-    names = set(argv) or {'halofit', 'HMcode', 'BAO'}
+    names = set(argv) or {'halofit', 'HMcode', 'BAO', 'native'}
     if not torch.cuda.is_available():
         print('stage_profile: torch.cuda is not available', file=sys.stderr)
         return 1
@@ -202,6 +289,8 @@ def main(argv=()):
               f'{1 - busy / wall:.1%}), {profiled:.3f} ms under it; on {card}', flush=True)
         for name, ms, count in top:
             print(f'  {ms:9.3f} ms  x{count:<5d} {name}', flush=True)
+    if 'native' in names:
+        native_profile(card, rng=rng)
     return 0
 
 

@@ -197,3 +197,58 @@ def test_bao_template_shapes_on_cuda(cuda_device, direction, rows):
     gk, = torch.autograd.grad(fftlog_kernel.fftlog_core(xk, *args), xk, grad_out)
     gp, = torch.autograd.grad(fftlog_kernel.fftlog_core_torch(xp, *args), xp, grad_out)
     assert norm_err(gk, gp) <= BAR
+
+
+def native_inputs(device):
+    """Two cosmologies' background, solver parameters and the k grid."""
+    from cosmoprimo_tpu_torch import Cosmology
+    p = [torch.tensor(v, dtype=torch.float64, device=device) for v in
+         ([0.12, 0.115], [0.0224, 0.0219], [0.68, 0.66], [0.965, 0.95], [3.04, 3.0])]
+    cosmo = Cosmology(omega_cdm=p[0], omega_b=p[1], h=p[2], n_s=p[3], logA=p[4], engine='native')
+    return cosmo, torch.from_numpy(np.geomspace(1e-3, 0.05, 16)).to(device)
+
+
+@pytest.mark.cuda
+def test_native_loops_graph_replay_against_eager(cuda_device):
+    """The recombination scan and both RK4 phases replayed from CUDA graphs
+    against the same loops run eagerly on the card (ops/step_loop.py): the
+    same kernels in the same order, so within 1e-13 (rounding only)."""
+    from cosmoprimo_tpu_torch.boltzmann import compute_thermodynamics
+    from cosmoprimo_tpu_torch.boltzmann.perturbations import linear_pk
+    cosmo, k = native_inputs(cuda_device)
+    ba, pp = cosmo.get_background(), cosmo.engine._perturbation_params()
+    out = {}
+    for graphs in (True, False):
+        th = compute_thermodynamics(cosmo['omega_b'], cosmo['h'], cosmo['T_cmb'], ba.efunc, tau_reio=cosmo['tau_reio'],
+                                    N_eff=cosmo['N_eff'], graphs=graphs)
+        out[graphs] = (th, linear_pk(pp, th, k, [0.0, 1.0], n_steps=(512, 256, 1024), graphs=graphs))
+    for name in ('x_e', 'T_m', 'tau', 'tau_drag'):
+        got, ref = getattr(out[True][0], name), getattr(out[False][0], name)
+        assert ((got - ref).abs() / ref.abs().amax(dim=-1, keepdim=True)).max().item() <= 1e-13, name
+    for name in ('pk_m', 'pk_cb'):
+        got, ref = out[True][1][name], out[False][1][name]
+        assert bool(torch.isfinite(ref).all()) and ((got - ref).abs() / ref.abs()).max().item() <= 1e-13, name
+
+
+@pytest.mark.cuda
+def test_native_loops_under_autograd(cuda_device):
+    """Forward mode runs the loops eagerly on the card (a replayed graph
+    carries no tangent) and agrees with a central difference to 1e-2
+    (z_drag is a crossing read off a piecewise-linear table: the difference
+    quotient over 2e-6 in omega_b lands within ~1e-3; the CPU tests hold the
+    tangent to jax.jacfwd at 1e-8); a tensor that requires grad is refused
+    there."""
+    from cosmoprimo_tpu_torch import Cosmology
+    from cosmoprimo_tpu_torch.boltzmann import compute_thermodynamics
+    ba = Cosmology(engine='native', device=cuda_device).get_background()
+
+    def z_drag(omega_b):
+        return compute_thermodynamics(omega_b, 0.6736, 2.7255, ba.efunc, tau_reio=0.0544).z_drag
+
+    ob = torch.tensor(0.02237, dtype=torch.float64, device=cuda_device)
+    _, tangent = torch.func.jvp(z_drag, (ob,), (torch.ones_like(ob),))
+    step = 1e-6
+    diff = (z_drag(ob + step) - z_drag(ob - step)) / (2 * step)
+    assert abs(tangent.item() / diff.item() - 1) < 1e-2
+    with pytest.raises(NotImplementedError, match='forward mode'):
+        z_drag(ob.clone().requires_grad_(True))

@@ -231,3 +231,34 @@ def test_romberg_and_gauss_laguerre():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL)
     for a, b in zip(quadrature.gauss_laguerre_nodes(100), jquad.gauss_laguerre_nodes(100)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize('n', [5, 16, 17, 300, 4097])
+def test_cumsum_blocked(n):
+    """The blocked cumulative sum lands on the bits of jnp.cumsum on the CPU
+    (XLA's order: blocks of 16, then the blocks' totals the same way)."""
+    x = np.random.default_rng(n).uniform(0.0, 1.0, (3, n))
+    ref = np.asarray(jax.jit(lambda v: jnp.cumsum(v, axis=-1))(x))
+    np.testing.assert_array_equal(quadrature.cumsum_blocked(t(x)).numpy(), ref)
+
+
+def test_per_row_evaluation():
+    """Interpolator1D.columns (each column at its own points), romberg with
+    a per-row upper limit and linspace_rows against their row-by-row JAX
+    counterparts."""
+    rng = np.random.default_rng(11)
+    x = np.linspace(0.0, 2.0, 30)
+    f = np.stack([np.sin(x * a) for a in (1.0, 1.5, 2.0)], axis=-1)           # (30, 3)
+    q = rng.uniform(0.0, 2.0, (3, 7))
+    ref = np.stack([np.asarray(jspline.Interpolator1D(x, f[:, i])(q[i])) for i in range(3)])
+    np.testing.assert_allclose(spline.Interpolator1D(t(x), t(f)).columns(t(q)).numpy(), ref, rtol=RTOL)
+
+    b = np.array([0.5, 1.0, 2.5])
+    scale = np.array([1.0, 2.0, 3.0])
+    ref = [float(jquad.romberg(lambda v: jnp.exp(-v * s), 0.0, bb, divmax=10)) for bb, s in zip(b, scale)]
+    got = quadrature.romberg(lambda v: torch.exp(-v * t(scale)[:, None]), 0.0, t(b), divmax=10)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL)
+
+    start, stop = np.array([-3.0, 0.5]), np.array([1.0, 7.0])
+    ref = np.asarray(jax.jit(lambda a, c: jnp.linspace(a, c, 9, axis=-1))(start, stop))
+    np.testing.assert_array_equal(misc.linspace_rows(t(start), t(stop), 9).numpy(), ref)
