@@ -17,14 +17,17 @@ Phases, each failing the run (non-zero exit) if its check fails:
    384 -> 1024), the sigma8 input path's TophatVariance on its 1e-7..1e2
    grid (4096, 1024 -> 2048), the BAO-template path's to_xi (PowerToCorrelation
    on 1e-7..1e2, 28 672 rows) and to_pk (CorrelationToPower on the s grid
-   that to_xi returns, 4096 rows), and random data at every padded length
+   that to_xi returns, 4096 rows), HankelTransform (nu = 0, q = 0.5: q = 0
+   is the pole of J_0's Mellin transform) and GaussianVariance on Gaussian
+   rows (4096, 1024 -> 2048), and random data at every padded length
    64 ... 8192;
    then the analytic Gaussian P(k) -> xi(s) transform through the kernel;
    then forward mode (torch.func.jvp through the kernel's jvp rule against
    jvp through the plain version, per row, one launch for the primal and
-   one for the tangent) at the headline and ell = (0, 2, 4) shapes, and
-   complex multipoles (ell = 0..3, complex=True: two launches, complex128)
-   against the plain version, per row;
+   one for the tangent) at the headline, ell = (0, 2, 4), Hankel and
+   Gaussian-variance shapes, and complex multipoles (ell = 0..3,
+   complex=True: two launches, complex128) against the plain version, per
+   row;
 4. headline: the port's make_pk_to_xi_pipeline_batched at B = 40 000,
    nk = 1024, z = [0], float64 on the card; the kernel's launch count must
    grow, every output must be finite, and the first 32 rows must agree with
@@ -55,9 +58,14 @@ Phases, each failing the run (non-zero exit) if its check fails:
    median of 5 each after a warm-up of each; the kernel against plain and
    against the library's FFT calls (torch.fft.rfft and irfft on the padded
    rows) at the headline, TophatVariance, to_xi and to_pk shapes, with CUDA
-   events after a warm-up, beside each shape's bound (bytes over 3.35 TB/s
-   against f64 operations over 34 TFLOP/s, the larger); and the kernel's
-   achieved device-memory rate at the headline shape (informational).
+   events, 200 launches of each in two turns after warm-ups, beside each
+   shape's bound (bytes over 3.35 TB/s against f64 operations over 34
+   TFLOP/s, the larger), at the headline, TophatVariance, to_xi, to_pk,
+   Hankel and Gaussian-variance shapes; the kernel's device time a launch
+   from torch.profiler and the host's enqueue time a call; at the 4096-row
+   shapes also with the L2 cache flushed before each launch; and the
+   kernel's achieved device-memory rate at the headline shape
+   (informational).
 
 10. native pipeline: make_native_pk_pipeline_batched(nk=256, kmax=1.0,
     z=(0, 1)) at B = 64 (B = 256 takes over 30 s a call: PERF.md), its
@@ -70,16 +78,38 @@ Phases, each failing the run (non-zero exit) if its check fails:
     2.5, rs_drag within 1.5e-3, tau_reio within 1e-6 of its input); its
     sigma8 launches the FFTLog kernel;
 12. native, card against CPU: the pipeline at kmax = 0.5 on 4 cosmologies,
-    pk_m and sigma8 rtol 1e-9, the thermodynamics scalars rtol 1e-10;
+    pk_m and sigma8 rtol 1e-9, the thermodynamics scalars rtol 1e-10; and
+    the lane of the largest deviation, with its distance to each of the
+    solver's switches and its time grids' card-against-CPU difference
+    (printed only);
 13. native, graphs against eager: the recombination scan and linear_pk on
     the cosmologies of 12 replayed from CUDA graphs and run eagerly on the
     card, x_e and pk_m within 1e-13; linear_pk on 256 k to 0.05 h/Mpc at
     768 + 384 steps (36 chunks of 32 steps), since the eager loops took
-    ~70 s at the budget of 12.
+    ~70 s at the budget of 12;
+14. the analytic engines at full width: make_pk_to_xi_pipeline_batched with
+    engine='bbks' and 'eisenstein_hu_nowiggle_variants' at B = 40 000,
+    nk = 1024, z = [0], one kernel launch each, checked as the headline;
+15. the EH99 variants with one massive species (m_ncdm ~ U(0.06, 0.12) eV,
+    N_eff = 3.044) at B = 4096, nk = 384, the seven DESI DR1 redshifts:
+    pk_interpolator(non_linear='mead'), whose sigma(R) comes from the cold
+    field (pk2d_cb), and 'halofit', then PowerToCorrelation of each table
+    through the kernel (two launches); P(k) and xi against the CPU on 32
+    rows at 1e-10;
+16. Cosmology.solve('h', 'theta_MC_100', target) at B = 4096, targets
+    ~ U(1.035, 1.045): h against the CPU on 32 rows at rtol 1e-10, and
+    |theta_MC_100 - target| <= |d theta / dh| xtol in every row (Ridders
+    stops with the root inside a bracket narrower than xtol = 1e-6); the
+    number of theta_MC_100 evaluations and the wall;
+17. TabulatedDESI() and DistanceToRedshift on 10^7 redshifts ~ U(0.1, 3)
+    drawn on the card: z -> chi -> z within 1e-6 (tests/test_utils.py), the
+    table against DESI()'s closed-form background within 1e-4
+    (tests/test_fiducial.py), and the card against the CPU on 32 entries.
 
-The kernel's launches in the main-path runs of phases 4-8 and 11 are summed
-into the "kernels" line. The last line is {"ok": true, "device": {...}}.
-Imports nothing of JAX.
+Each of phases 14-17 prints its wall (median of 5 after a warm-up). The
+kernel's launches in the main-path runs of phases 4-8, 11, 14 and 15 are
+summed into the "kernels" line. The last line is {"ok": true, "device":
+{...}}. Imports nothing of JAX.
 """
 
 import json
@@ -136,6 +166,17 @@ BAO_BAND = K_H <= 0.21
 SIGMA8_M_CLASS, SIGMA8_CB_CLASS = 0.807952, 0.811355
 Z_DRAG_PLANCK, Z_STAR_PLANCK = 1059.94, 1089.92
 RS_DRAG_CLASS = 1.470933e2 * 0.6736   # Mpc/h
+# slice 4b: the analytic engines at full width, the batched solve and the
+# mock-catalogue distance inversion
+ANALYTIC_ENGINES = ('bbks', 'eisenstein_hu_nowiggle_variants')
+B_VARIANTS = 4096
+B_SOLVE = 4096
+SOLVE_XTOL = 1e-6          # Cosmology.solve's default for h
+SOLVE_RTOL = 1e-10         # h, card against CPU
+N_MOCK = 10 ** 7
+ROUND_TRIP_RTOL = 1e-6     # z -> chi -> z, tests/test_utils.py
+TABULATED_RTOL = 1e-4      # TabulatedDESI against DESI()'s closed form, tests/test_fiducial.py
+TIMED_LAUNCHES = 100       # per turn; two turns of each
 
 
 def check(ok, message):
@@ -153,6 +194,12 @@ def pk_like(k, amplitude, tilt):
     return amplitude[:, None] * 1e4 * (k / 0.1) ** tilt[:, None] / (1 + (k / 0.1) ** 3)
 
 
+def gauss_like(k, amplitude, width):
+    """Gaussian rows, one per (amplitude, width): their Hankel transforms
+    and Gaussian variances are of order one."""
+    return amplitude[:, None] * torch.exp(-(k / width[:, None]) ** 2 / 2)
+
+
 def cuda_ms(fn, reps=20):
     for _ in range(3):
         fn()
@@ -163,6 +210,40 @@ def cuda_ms(fn, reps=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_ms(fn, reps=2 * TIMED_LAUNCHES):
+    """Mean CUDA-event time of one call of ``fn`` with the L2 cache flushed
+    before each (a 256 MB write outside the timed span)."""
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float64, device=DEVICE)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    fn()
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / reps
+
+
+def device_ms(fn, reps=2 * TIMED_LAUNCHES):
+    """Device time of one call of ``fn`` from torch.profiler, the mean over
+    ``reps`` back-to-back calls: the kernels' own time, without the gaps
+    between launches; None if the profiler shows no device time. Also the
+    host's time to enqueue one call (ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return (busy / reps if busy else None), host
 
 
 def wall_ms(fn, reps=5, warmup=True):
@@ -221,15 +302,18 @@ def run_pipeline(label, fn, params, nk, fftlog_kernel, card, timed=True):
     return launches
 
 
-def forward_mode_and_complex(fftlog_kernel, transform_case, k, PowerToCorrelation):
+def forward_mode_and_complex(fftlog_kernel, transform_case, k, PowerToCorrelation, more_jvp_cases):
     """Phase 3, second part: jvp and complex multipoles through the kernel
-    against the plain version; returns the largest absolute difference."""
+    against the plain version, jvp also on ``more_jvp_cases`` (label,
+    transform, rows, input profile); returns the largest absolute
+    difference."""
     max_abs_err = 0.0
     lnk = torch.log(torch.from_numpy(k).to(DEVICE) / 0.1)
-    for label, transform, rows in ((f'PowerToCorrelation ({B}, 1024 -> 2048)', PowerToCorrelation(k), B),
-                                   ('PowerToCorrelation ell=(0, 2, 4) (3 x 1000, 1024 -> 2048)',
-                                    PowerToCorrelation(k, ell=[0, 2, 4]), 3000)):
-        x, args = transform_case(transform, rows)
+    cases = ((f'PowerToCorrelation ({B}, 1024 -> 2048)', PowerToCorrelation(k), B, pk_like),
+             ('PowerToCorrelation ell=(0, 2, 4) (3 x 1000, 1024 -> 2048)', PowerToCorrelation(k, ell=[0, 2, 4]), 3000,
+              pk_like)) + tuple(more_jvp_cases)
+    for label, transform, rows, profile in cases:
+        x, args = transform_case(transform, rows, profile=profile)
         tangent = x * lnk                                  # d x / d tilt: smooth
         fftlog_kernel.launches = 0
         out, jvp = torch.func.jvp(lambda f: fftlog_kernel.fftlog_core(f, *args), (x,), (tangent,))
@@ -437,17 +521,20 @@ def native_path(fftlog_kernel, rng, card):
 
     def run(device):
         p = [torch.from_numpy(v).to(device) for v in params]
-        th = Cosmology(omega_cdm=p[0], omega_b=p[1], h=p[2], n_s=p[3], logA=p[4], engine='native').get_thermodynamics()
-        return fn(*p), {name: getattr(th, name).cpu() for name in scalars}
+        cosmo = Cosmology(omega_cdm=p[0], omega_b=p[1], h=p[2], n_s=p[3], logA=p[4], engine='native')
+        th = cosmo.get_thermodynamics()
+        return fn(*p), {name: getattr(th, name).cpu() for name in scalars}, cosmo
 
-    (pk, sigma8), th_dev = run(DEVICE)
-    (pk_cpu, sigma8_cpu), th_cpu = run('cpu')
+    (pk, sigma8), th_dev, cosmo_dev = run(DEVICE)
+    (pk_cpu, sigma8_cpu), th_cpu, cosmo_cpu = run('cpu')
     pk_err = (pk.cpu() / pk_cpu - 1).abs().max().item()
     s8_err = (sigma8.cpu() / sigma8_cpu - 1).abs().max().item()
     th_err = max((th_dev[name] / th_cpu[name] - 1).abs().max().item() for name in scalars)
     print(f'native, card vs CPU, {B_NATIVE_CHECK} cosmologies, kmax=0.5: pk_m {pk_err:.3e}, sigma8 {s8_err:.3e} '
           f'(bar {NATIVE_RTOL:g}), thermodynamics scalars {th_err:.3e} (bar {THERMO_RTOL:g})', flush=True)
     check(pk_err <= NATIVE_RTOL and s8_err <= NATIVE_RTOL and th_err <= THERMO_RTOL, 'native card and CPU disagree')
+    native_worst_lane(pk.cpu(), pk_cpu, {DEVICE: cosmo_dev, 'cpu': cosmo_cpu}, np.geomspace(1e-4, 0.5, NK_NATIVE),
+                      (0.0, 1.0))
 
     # 13. graph replay against the eager loop, on the card, on the inputs of 12
     p = [torch.from_numpy(v).to(DEVICE) for v in params]
@@ -473,6 +560,188 @@ def native_path(fftlog_kernel, rng, card):
     check(bool(torch.isfinite(out[False][1]).all()), 'the eager loop at GRAPH_N_STEPS is not finite')
     check(x_err <= GRAPH_RTOL and pk_err <= GRAPH_RTOL, 'the graph replay disagrees with the eager loop')
     return launches
+
+
+def native_worst_lane(pk, pk_cpu, cosmos, k_hmpc, z):
+    """Phase 12, diagnosis: the (cosmology, k, z) entry of the largest
+    card-against-CPU deviation of pk_m, and how near its lane comes to each
+    of the solver's switches, on the CPU's tables: the tight-coupling
+    triggers kappa' > 120 aH and kappa' > 50 k and the Poisson pin k >
+    2.5 aH at every RK4 point of phase A and on the master grid of the step
+    density; also how far the lane's time grids (phase A, phase B) differ
+    between the card and the CPU. Prints only; phase 12's bar decides."""
+    from cosmoprimo_tpu_torch.boltzmann.perturbations import (POISSON_KAH, TCA_TRIGGER_AH, TCA_TRIGGER_K, _fetch,
+                                                              _setup, steps_for_kmax)
+    dev = (pk / pk_cpu - 1).abs()                                   # (B, nz, nk)
+    b, iz, j = np.unravel_index(int(dev.argmax()), tuple(dev.shape))
+    runs = {}
+    for device, cosmo in cosmos.items():
+        pp = cosmo.engine._perturbation_params()
+        k = torch.from_numpy(k_hmpc).to(device) * pp['h'][:, None]
+        runs[device] = _setup(pp, cosmo.get_thermodynamics().table, k, list(z), steps_for_kmax(float(k_hmpc[-1])))
+    cpu = runs['cpu']
+    grid_diff = max(((runs[DEVICE][name][:, b, j].cpu() - cpu[name][:, b, j]).abs() / cpu[name][:, b, j]).max().item()
+                    for name in ('eta_A', 'eta_B'))
+    k = cpu['k'][b, j]
+    eta = cpu['eta_A'][:, b, j]
+    eta = torch.cat([eta, 0.5 * (eta[1:] + eta[:-1])])              # the RK4 nodes and midpoints
+    c = _fetch(cpu['tabs'], eta[:, None, None].expand(-1, cpu['k'].shape[0], 1))
+    kp, Hc = c['kp'][:, b, 0], c['Hc'][:, b, 0]
+    kpm, Hcm = cpu['tabs']['kp'][b], cpu['tabs']['Hc'][b]
+
+    def margin(x):
+        return (x - 1).abs().min().item()
+
+    margins = {'tca kappa\'/(120 aH)': margin(kp / (TCA_TRIGGER_AH * Hc)), 'tca kappa\'/(50 k)': margin(kp / (TCA_TRIGGER_K * k)),
+               'pin k/(2.5 aH)': margin(k / (POISSON_KAH * Hc)),
+               'grid tca kappa\'/(120 aH)': margin(kpm / (TCA_TRIGGER_AH * Hcm)),
+               'grid tca kappa\'/(50 k)': margin(kpm / (TCA_TRIGGER_K * k))}
+    low_k = dev[..., k_hmpc >= 1e-3].max().item()
+    on = [name for name, value in margins.items() if value < 1e-10]
+    print(f'native, card vs CPU, worst lane: cosmology {b}, k = {k_hmpc[j]:.6g} h/Mpc (index {j} of {k_hmpc.size}), '
+          f'z = {z[iz]}: {dev[b, iz, j].item():.3e}; median over all lanes {dev.median().item():.3e}; worst at '
+          f'k >= 1e-3 h/Mpc {low_k:.3e}; its time grids, card against CPU, {grid_diff:.3e}; nearest approach to each '
+          f'switch (|ratio - 1|): ' + ', '.join(f'{name} {value:.3e}' for name, value in margins.items())
+          + f'; on a threshold (< 1e-10): {on or "none"}', flush=True)
+
+
+def analytic_engines(fftlog_kernel, rng, card):
+    """Phases 14 and 15: the BBKS and EH99-variants engines through the
+    pk -> xi pipeline at full width, then the variants with one massive
+    species through HMcode (its cold field for sigma(R)) and halofit, and
+    PowerToCorrelation of each table. Returns the kernel's launches."""
+    from cosmoprimo_tpu_torch import Cosmology, PowerToCorrelation, make_pk_to_xi_pipeline_batched
+    launches = 0
+    # 14. full width, one FFTLog launch each
+    for engine in ANALYTIC_ENGINES:
+        fn, _, _ = make_pk_to_xi_pipeline_batched(nk=NK, z=[0.0], engine=engine)
+        n = run_pipeline(f'{engine} pipeline', fn, cosmo_params(rng, B), NK, fftlog_kernel, card)
+        check(n == 1, f'the {engine} pipeline took {n} kernel launches, not one')
+        launches += n
+
+    # 15. one massive species, the seven DESI redshifts
+    params = cosmo_params(rng, B_VARIANTS) + (rng.uniform(0.06, 0.12, B_VARIANTS),)
+    k_np = np.geomspace(1e-5, 1e2, NK_HMCODE)
+    # on the tables' own k grid: to_xi would spline them up to 1e2 h/Mpc,
+    # where the log-log padding puts knots 4e-10 apart in log10 k and the
+    # card and the CPU differ by ~1e-7 (PERF.md, ROADMAP queue 3)
+    p2c = PowerToCorrelation(k_np)
+
+    def run(device, rows):
+        omega_cdm, omega_b, h, n_s, logA, m_ncdm = (torch.from_numpy(p[rows]).to(device) for p in params)
+        fo = Cosmology(engine='eisenstein_hu_nowiggle_variants', omega_cdm=omega_cdm, omega_b=omega_b, h=h, n_s=n_s,
+                       logA=logA, m_ncdm=[m_ncdm], N_eff=3.044).get_fourier()
+        out = {}
+        for non_linear in ('mead', 'halofit'):
+            pk = fo.pk_interpolator(non_linear=non_linear, k=k_np, z=DESI_Z).pk            # (B, nk, nz)
+            out[f'pk {non_linear}'] = pk
+            out[f'xi {non_linear}'] = p2c(pk.transpose(-1, -2))[1].transpose(-1, -2)   # one launch
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    fftlog_kernel.launches = 0
+    out = run(DEVICE, slice(None))
+    torch.cuda.synchronize()
+    n = fftlog_kernel.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f'variants with one massive species: B={B_VARIANTS} x {DESI_Z.size} z, nk={NK_HMCODE}, mead (cold field '
+          f'for sigma(R)) and halofit, P(k) and xi {tuple(out["pk mead"].shape)}, kernel '
+          f'launches {n}, peak memory {peak_gb:.2f} GB', flush=True)
+    check(n == 2, 'the variants phase did not launch the FFTLog kernel once for each table')
+    check(all(bool(torch.isfinite(value).all()) for value in out.values()), 'variants outputs are not all finite')
+    ref = run('cpu', slice(N_COMPARE))
+    errs = {}
+    for name, value in ref.items():
+        got = out[name][:N_COMPARE].cpu()
+        if name.startswith('xi'):   # 1e-10 of each (cosmology, z) row's max
+            errs[name] = ((got - value).abs().amax(dim=-2) / value.abs().amax(dim=-2)).max().item()
+        else:
+            errs[name] = (got / value - 1).abs().max().item()
+    print(f'variants, card vs CPU, first {N_COMPARE} cosmologies: ' + ', '.join(f'{name} {err:.3e}' for name, err in
+                                                                              errs.items()) + f' (bar {BAO_RTOL:g})',
+          flush=True)
+    check(all(err <= BAO_RTOL for err in errs.values()), 'card and CPU disagree on the variants phase')
+    wall = wall_ms(lambda: run(DEVICE, slice(None)))
+    print(f'variants wall: {wall:.3f} ms per batch of {B_VARIANTS} x {DESI_Z.size} z (mead, halofit, two transforms; median '
+          f'of 5 after a warm-up) on {card}', flush=True)
+    return launches + n
+
+
+def batched_solve(rng, card):
+    """Phase 16: solve('h', 'theta_MC_100', target) for a batch, one target
+    per row, against the same solve on CPU tensors."""
+    from cosmoprimo_tpu_torch import Cosmology, cosmology
+    omega_cdm, omega_b, _, n_s, logA = cosmo_params(rng, B_SOLVE)
+    target = rng.uniform(1.035, 1.045, B_SOLVE)
+    evaluations = [0]
+    rs_cosmomc = cosmology._compute_rs_cosmomc
+
+    def counted(*args):   # one per evaluation of theta_MC_100
+        evaluations[0] += 1
+        return rs_cosmomc(*args)
+
+    def solve(device, rows):
+        cosmo = Cosmology(engine='eisenstein_hu', **{name: torch.from_numpy(value[rows]).to(device) for name, value in
+                                                     (('omega_cdm', omega_cdm), ('omega_b', omega_b), ('n_s', n_s),
+                                                      ('logA', logA))})
+        return cosmo.solve('h', 'theta_MC_100', target=torch.from_numpy(target[rows]).to(device))
+
+    cosmology._compute_rs_cosmomc = counted
+    try:
+        sol = solve(DEVICE, slice(None))
+        h = sol['h']
+        torch.cuda.synchronize()
+        n_eval = evaluations[0]
+        ref = solve('cpu', slice(N_COMPARE))['h']
+        wall = wall_ms(lambda: solve(DEVICE, slice(None))['h'])
+    finally:
+        cosmology._compute_rs_cosmomc = rs_cosmomc
+    theta = sol['theta_MC_100']
+    # Ridders stops once the bracket is narrower than xtol, so |h - h*| < xtol
+    # and |theta(h) - target| <= |d theta / dh| xtol, the slope from a central
+    # difference at the solution
+    slope = (sol.clone(h=h + 1e-4)['theta_MC_100'] - sol.clone(h=h - 1e-4)['theta_MC_100']) / 2e-4
+    theta_err = ((theta - torch.from_numpy(target).to(DEVICE)).abs() / (slope.abs() * SOLVE_XTOL)).max().item()
+    h_err = (h[:N_COMPARE].cpu() / ref - 1).abs().max().item()
+    print(f'batched solve h <- theta_MC_100: B={B_SOLVE}, {n_eval} evaluations of theta_MC_100 (each the whole batch), '
+          f'h in [{h.min().item():.4f}, {h.max().item():.4f}]; h card vs CPU on {N_COMPARE} rows {h_err:.3e} (bar '
+          f'{SOLVE_RTOL:g}); |theta - target| / (|d theta / dh| xtol) at most {theta_err:.3e} (bar 1, xtol '
+          f'{SOLVE_XTOL:g}); wall {wall:.3f} ms (median of 5 after a warm-up) on {card}', flush=True)
+    check(bool(torch.isfinite(h).all()), 'the batched solve left a row without a root')
+    check(h_err <= SOLVE_RTOL and theta_err <= 1.0, 'the batched solve is wrong')
+
+
+def mock_redshifts(card):
+    """Phase 17: TabulatedDESI and DistanceToRedshift on a mock catalogue's
+    comoving distances, drawn on the card."""
+    from cosmoprimo_tpu_torch.fiducial import DESI, TabulatedDESI
+    from cosmoprimo_tpu_torch.utils import DistanceToRedshift
+    generator = torch.Generator(device=DEVICE).manual_seed(17)
+    # DESI's tracers span 0.1 (BGS) to ~3 (the Lyman-alpha quasars); below 0.1
+    # the closed-form background's own distance table departs from CLASS's
+    # by more than the bar (2e-3 at z = 0.001)
+    z = 0.1 + 2.9 * torch.rand(N_MOCK, dtype=torch.float64, device=DEVICE, generator=generator)
+
+    def run(zz):
+        tab = TabulatedDESI(device=zz.device)
+        chi = tab.comoving_radial_distance(zz)
+        return chi, DistanceToRedshift(tab.comoving_radial_distance)(chi), tab.efunc(zz)
+
+    chi, z_back, efunc = run(z)
+    round_trip = (z_back / z - 1).abs().max().item()
+    fid = DESI(engine='eisenstein_hu', device=DEVICE)
+    closed = max((chi / fid.comoving_radial_distance(z) - 1).abs().max().item(),
+                 (efunc / fid.efunc(z) - 1).abs().max().item())
+    ref = run(z[:N_COMPARE].cpu())
+    cpu = max((got[:N_COMPARE].cpu() / value - 1).abs().max().item() for got, value in zip((chi, z_back, efunc), ref))
+    wall = wall_ms(lambda: run(z))
+    print(f'mock redshifts: {N_MOCK} z ~ U(0.1, 3) drawn on the card; TabulatedDESI chi and efunc against DESI()\'s '
+          f'closed form {closed:.3e} (bar {TABULATED_RTOL:g}); z -> chi -> z {round_trip:.3e} (bar {ROUND_TRIP_RTOL:g}); '
+          f'card vs CPU on {N_COMPARE} {cpu:.3e} (bar {CHI_SIGMA8_RTOL:g}); wall {wall:.3f} ms (TabulatedDESI, chi, the '
+          f'inversion and efunc; median of 5 after a warm-up) on {card}', flush=True)
+    check(bool(torch.isfinite(z_back).all()), 'the inversion left NaN redshifts')
+    check(closed <= TABULATED_RTOL and round_trip <= ROUND_TRIP_RTOL and cpu <= CHI_SIGMA8_RTOL,
+          'the mock redshifts are wrong')
 
 
 def kernel_bound_ms(x, args):
@@ -509,8 +778,8 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda is not available', file=sys.stderr)
         return 1
-    from cosmoprimo_tpu_torch import (Cosmology, CorrelationToPower, PowerToCorrelation, TophatVariance,
-                                      make_pk_to_xi_pipeline_batched)
+    from cosmoprimo_tpu_torch import (Cosmology, CorrelationToPower, GaussianVariance, HankelTransform,
+                                      PowerToCorrelation, TophatVariance, make_pk_to_xi_pipeline_batched)
     from cosmoprimo_tpu_torch.interpolator import _tophat_variance
     from cosmoprimo_tpu_torch.ops import fftlog_kernel
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -543,14 +812,14 @@ def main():
     to_xi = PowerToCorrelation(np.geomspace(1e-7, 1e2, NK))
     to_pk = CorrelationToPower(np.geomspace(to_xi.y[0, 0], to_xi.y[0, -1], NK))
 
-    def transform_case(transform, rows, ratio=1.0, k_in=k_dev):
+    def transform_case(transform, rows, ratio=1.0, k_in=k_dev, profile=pk_like):
         arrays = transform._arrays(dev)
         args = (arrays['padded_u'], arrays['padded_prefactor'], arrays['padded_postfactor'],
                 transform.padded_size_in_left, transform.padded_size_out_left)
         amplitude = rng.uniform(0.5, 2.0, rows)
         amplitude[1::2] *= ratio
         tilt = torch.from_numpy(rng.uniform(0.9, 1.0, rows)).to(dev)
-        return pk_like(k_in, torch.from_numpy(amplitude).to(dev), tilt).contiguous(), args
+        return profile(k_in, torch.from_numpy(amplitude).to(dev), tilt).contiguous(), args
 
     def random_case(log2n, rows):
         n = 2 ** log2n
@@ -580,6 +849,10 @@ def main():
             transform_case(to_xi, B_BAO * DESI_Z.size, k_in=torch.from_numpy(to_xi.x[0]).to(dev)),
         f'CorrelationToPower, to_pk on the s grid of to_xi ({B_BAO}, 1024 -> 2048)':
             transform_case(to_pk, B_BAO, k_in=torch.from_numpy(1.0 / to_pk.x[0]).to(dev)),
+        # q = 0 sits on the pole of J_0's Mellin transform
+        'HankelTransform nu=0, q=0.5 (4096, 1024 -> 2048)':
+            transform_case(HankelTransform(k, nu=0, q=0.5), 4096, profile=gauss_like),
+        'GaussianVariance (4096, 1024 -> 2048)': transform_case(GaussianVariance(k), 4096, profile=gauss_like),
     }
     for log2n in range(fftlog_kernel.MIN_LOG2N, fftlog_kernel.MAX_LOG2N + 1):
         cases[f'random (257, {2 ** (log2n - 1)} -> {2 ** log2n})'] = random_case(log2n, 257)
@@ -602,7 +875,7 @@ def main():
               flush=True)
         check(fwd <= KERNEL_BAR and bwd <= KERNEL_BAR, f'kernel disagrees with plain at {label}')
         if label.startswith(('TophatVariance (4096', f'PowerToCorrelation ({B}', 'PowerToCorrelation, to_xi',
-                             'CorrelationToPower')):
+                             'CorrelationToPower', 'HankelTransform', 'GaussianVariance')):
             timed[label] = (x, args)
 
     # analytic: xi(s) = sqrt(pi/2) / (2 pi^2) exp(-s^2/2) for P(k) = exp(-k^2/2)
@@ -615,7 +888,11 @@ def main():
     print(f'Gaussian P(k) -> xi(s) through the kernel: max |d| / (1e-7 + 1e-4 |xi|) = {gauss_err:.3e} (bar 1)')
     check(gauss_err <= 1.0, 'analytic Gaussian transform fails')
 
-    max_abs_err = max(max_abs_err, forward_mode_and_complex(fftlog_kernel, transform_case, k, PowerToCorrelation))
+    more_jvp_cases = (('HankelTransform nu=0, q=0.5 (4096, 1024 -> 2048)', HankelTransform(k, nu=0, q=0.5), 4096,
+                       gauss_like),
+                      ('GaussianVariance (4096, 1024 -> 2048)', GaussianVariance(k), 4096, gauss_like))
+    max_abs_err = max(max_abs_err, forward_mode_and_complex(fftlog_kernel, transform_case, k, PowerToCorrelation,
+                                                            more_jvp_cases))
 
     # 4. headline
     params = cosmo_params(rng, B)
@@ -657,13 +934,16 @@ def main():
           f'per batch of {B}) on {card}', flush=True)
     print(f"headline A/B, median of 5 in turns: fft_engine='kernel' {wall['kernel'] * 1e3:.3f} ms, "
           f"fft_engine='torch' {wall['torch'] * 1e3:.3f} ms per batch of {B} on {card}", flush=True)
+    clocks = subprocess.run(['nvidia-smi', '--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu',
+                             '--format=csv,noheader'], capture_output=True, text=True).stdout.strip()
+    print(f'card before the kernel times (SM clock, its maximum, power draw, temperature): {clocks}', flush=True)
     times = {}
     for label, (x, args) in timed.items():
         kernel_ms = plain_ms = 0.0
         for order in (('plain', 'kernel'), ('kernel', 'plain')):
             for name in order:
                 fun = fftlog_kernel.fftlog_core if name == 'kernel' else fftlog_kernel.fftlog_core_torch
-                ms = cuda_ms(lambda: fun(x, *args)) / 2
+                ms = cuda_ms(lambda: fun(x, *args), reps=TIMED_LAUNCHES) / 2
                 if name == 'kernel':
                     kernel_ms += ms
                 else:
@@ -673,7 +953,16 @@ def main():
         times[label] = (kernel_ms, plain_ms, bound_ms, bound_by, library_ms)
         print(f'time, {label}: kernel {kernel_ms:.4f} ms, plain torch.fft {plain_ms:.4f} ms, library FFT calls '
               f'{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; the kernel at {bound_ms / kernel_ms:.1%} '
-              f'of it) on {card}', flush=True)
+              f'of it); {2 * TIMED_LAUNCHES} launches of each in turns, on {card}', flush=True)
+        device, host = device_ms(lambda: fftlog_kernel.fftlog_core(x, *args))
+        device = 'not measured (the profiler shows no device time)' if device is None else f'{device:.4f} ms'
+        print(f'time, {label}: the kernel\'s device time (torch.profiler) {device} a launch, the host\'s enqueue '
+              f'{host:.4f} ms a call ({2 * TIMED_LAUNCHES} calls)', flush=True)
+        if x.shape[0] <= 4096:   # inputs and output (~67 MB) near the 50 MB L2: time it cold too
+            cold = {name: cold_ms(lambda: fun(x, *args)) for name, fun in
+                    (('kernel', fftlog_kernel.fftlog_core), ('plain', fftlog_kernel.fftlog_core_torch))}
+            print(f'time, {label}, L2 flushed before each launch: kernel {cold["kernel"]:.4f} ms, plain '
+                  f'{cold["plain"]:.4f} ms ({2 * TIMED_LAUNCHES} launches each) on {card}', flush=True)
 
     kernel_ms, plain_ms, bound_ms, bound_by, library_ms = times[f'PowerToCorrelation ({B}, 1024 -> 2048)']
     gbytes = 2 * B * NK * 8 / 1e9
@@ -682,6 +971,11 @@ def main():
 
     # 10-13. the native Boltzmann path
     launches += native_path(fftlog_kernel, rng, card)
+
+    # 14-17. the analytic engines, the batched solve and the mock redshifts
+    launches += analytic_engines(fftlog_kernel, rng, card)
+    batched_solve(rng, card)
+    mock_redshifts(card)
 
     print(json.dumps({'kernels': [{
         'name': 'fftlog_core', 'route': 'cuda', 'source': 'cosmoprimo_tpu_torch/csrc/fftlog_core.cu',

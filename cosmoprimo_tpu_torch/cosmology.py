@@ -1,6 +1,6 @@
 """Cosmological parameter system, engine front-end and background
-(cosmoprimo_tpu/cosmology.py without ``Cosmology.solve`` and the file round
-trip).
+(cosmoprimo_tpu/cosmology.py): parameters, engines, ``Cosmology.solve``, the
+state and its files, the sections' base classes and the default background.
 
 Batch-first: every numeric parameter is a float64 tensor of one common batch
 shape, () for one cosmology or (B,) for B of them, on one device. The
@@ -17,14 +17,15 @@ a build that names no device raises; ``device='cpu'`` runs on the CPU.
 
 import functools
 import sys
+import warnings
 
 import numpy as np
 import torch
 
 from . import constants, utils
-from .ops import (Interpolator1D, cumquad_rk4, exception_or_nan, flatarray, gauss_laguerre_nodes,
+from .ops import (Interpolator1D, batch_scalar, cumquad_rk4, exception_or_nan, flatarray, gauss_laguerre_nodes,
                   linear_ode2_rk4_prefix, romberg)
-from .ops.roots import for_cond_loop
+from .ops.roots import bisect, bracket, for_cond_loop
 
 _Sections = ['Background', 'Thermodynamics', 'Primordial', 'Perturbations', 'Transfer', 'Harmonic', 'Fourier']
 
@@ -578,6 +579,14 @@ class ParamsAccessor(object):
             return params['m_ncdm'].shape[0]
         if name == 'N_eff':
             return torch.sum(params['T_ncdm_over_cmb'] ** 4 * (4.0 / 11.0) ** (-4.0 / 3.0), dim=0) + params['N_ur']
+        if name == 'theta_cosmomc':
+            # the CosmoMC approximation, at each row's own z_star
+            ba = self.get_background()
+            rs, zstar = _compute_rs_cosmomc(self['omega_b'], self['omega_m'], ba.hubble_function_rows)
+            self._derived[name] = rs * ba.h / ba.comoving_transverse_distance_rows(zstar[..., None])[..., 0]
+            return self._derived[name]
+        if name == 'theta_MC_100':
+            return self.get('theta_cosmomc') * 100.0
         raise KeyError(name)
 
     @property
@@ -594,6 +603,10 @@ _ENGINE_REGISTRY = {}
 _ENGINE_MODULES = {
     'eisenstein_hu': 'models.eisenstein_hu',
     'eisenstein_hu_nowiggle': 'models.eisenstein_hu_nowiggle',
+    'eisenstein_hu_nowiggle_variants': 'models.eisenstein_hu_nowiggle_variants',
+    'bbks': 'models.bbks',
+    'tabulated': 'models.tabulated',
+    'astropy': 'models.astropy',
     'native': 'models.native',
 }
 
@@ -603,6 +616,41 @@ def register_engine(cls):
     engine's module by name on first access."""
     _ENGINE_REGISTRY[cls.name] = cls
     return cls
+
+
+def register_section(cls):
+    """Mark a section class; the JAX package registers it as a pytree, the
+    port needs nothing, so a module written for either runs here."""
+    return cls
+
+
+def _deepeq(obj1, obj2):
+    """Equality of nested dicts, lists and arrays, tensors and numpy arrays
+    comparing by value (a file round trip turns one into the other)."""
+    arraylike = (np.ndarray, torch.Tensor)
+    if isinstance(obj1, arraylike) and isinstance(obj2, arraylike):
+        obj1 = torch.as_tensor(obj1)
+        obj2 = torch.as_tensor(obj2).to(device=obj1.device, dtype=obj1.dtype)
+        return torch.equal(obj1, obj2)
+    if type(obj2) is type(obj1):
+        if isinstance(obj1, dict):
+            return obj2.keys() == obj1.keys() and all(_deepeq(obj1[k], obj2[k]) for k in obj1)
+        if isinstance(obj1, (tuple, list)):
+            return len(obj2) == len(obj1) and all(_deepeq(a, b) for a, b in zip(obj1, obj2))
+        return obj2 == obj1
+    return False
+
+
+def _to_numpy(value):
+    """``value`` with every tensor, also inside dicts, lists and tuples, as
+    a numpy array on the host: the state format of the JAX package."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    if isinstance(value, dict):
+        return {name: _to_numpy(item) for name, item in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_to_numpy(item) for item in value)
+    return value
 
 
 def get_engine(engine):
@@ -711,6 +759,12 @@ class BaseEngine(ParamsAccessor):
         cosmo = Cosmology.__new__(Cosmology)
         cosmo._params = {**self._params, **params}
         return self.__class__(cosmo, **self._extra_params)
+
+    def __eq__(self, other):
+        return type(other) == type(self) and _deepeq(other._params, self._params) and other._extra_params == self._extra_params
+
+    def __hash__(self):
+        return object.__hash__(self)
 
 
 for _section in _Sections:
@@ -831,21 +885,137 @@ class Cosmology(ParamsAccessor):
             new.set_engine(engine_cls, **extra_params)
         return new
 
+    def solve(self, param, func, target=0.0, limits=None, init=None, xtol=None, maxiter=25):
+        """A clone where ``func(cosmo) == target``, varying the input
+        parameter ``param``, per row.
+
+        ``func`` is a callable cosmo -> value (of the batch shape) or the
+        name of a derived parameter ('theta_MC_100' takes the CLASS guess of
+        h or H0 from the target); ``target`` is a float or a tensor of the
+        batch shape. Explicit ``limits`` = (lo, hi) skip the bracket search;
+        otherwise ``init`` (by default the current value) and a first step
+        scaled by the secant slope start it (:func:`ops.roots.bracket`).
+        The root is then found by Ridders' method to ``xtol``
+        (:func:`ops.roots.bisect`); a row without a sign change is NaN."""
+        default_step = {'h': 0.01, 'H0': 1.0}
+        default_tol = {'h': 1e-6, 'H0': 1e-4}
+        if isinstance(target, (torch.Tensor, np.ndarray)):
+            target = _asfloat(target, self.device)
+
+        if isinstance(func, str):
+            name = func
+
+            def func(cosmo):
+                return cosmo[name]
+
+            if name == 'theta_MC_100' and init is None and limits is None and param in ('h', 'H0'):
+                # CLASS's initial guess of h from 100 theta_MC (class_public fit)
+                h_guess = 3.54 * target ** 2 - 5.455 * target + 2.548
+                init = h_guess if param == 'h' else 100.0 * h_guess
+        if not callable(func):
+            raise CosmologyInputError(f'func must be a callable cosmo -> value or a derived-parameter name, got {func!r}')
+
+        def f(value):
+            return func(self.clone(base='input', **{param: value})) - target
+
+        if xtol is None:
+            xtol = default_tol.get(param, 1e-6)
+        if limits is None:
+            if init is None:
+                init = self[param]
+            if not isinstance(init, (tuple, list)):   # else (x0, dx) or (x0, dx, f0)
+                x0 = init
+                dx0 = default_step.get(param, None)
+                if dx0 is None:
+                    dx0 = 0.05 * torch.abs(_asfloat(x0, self.device))
+                    dx0 = torch.where(dx0 == 0, 0.05, dx0)
+                # the secant slope scales the first step of the bracket search
+                f0 = f(x0)
+                df = f(x0 + dx0) - f0
+                init = (x0, torch.where(df == 0, dx0, f0 * dx0 / df), f0)
+            limits = bracket(f, init=init, maxiter=maxiter)
+        value = bisect(f, limits=tuple(limits), xtol=xtol, maxiter=maxiter)
+        return self.clone(base='input', **{param: value})
+
+    # ---- the state and files, in the JAX package's format
+    def __getstate__(self):
+        """The parameters ('params', 'input_params', 'derived') as dicts of
+        numpy arrays and Python values, and the engine's name and extra
+        parameters: the dict of ``cosmoprimo_tpu.Cosmology.__getstate__``."""
+        state = {name: _to_numpy(getattr(self, '_' + name)) for name in ('params', 'input_params', 'derived')}
+        state['engine'] = None
+        if self._engine is not None:
+            state['engine'] = {'name': self._engine.name, 'extra_params': _to_numpy(self._engine._extra_params)}
+        return state
+
+    def __setstate__(self, state):
+        self._setstate(state, None)
+
+    def _setstate(self, state, device):
+        params = dict(state['params'])
+        device = _infer_device(params, device)
+        self._params = _to_batch(params, device)
+        self._input_params = dict(state.get('input_params', {}))
+        self._derived = {name: _asfloat(value, device) for name, value in state.get('derived', {}).items()}
+        self._extra_params = {}
+        self._engine = None
+        if state.get('engine', None) is not None:
+            self.set_engine(state['engine']['name'], **state['engine']['extra_params'])
+
     @classmethod
     def from_state(cls, state, device=None):
-        """Build from the dict that ``cosmoprimo_tpu.Cosmology.__getstate__()``
-        returns (numpy arrays and strings), on ``device`` (by default the
-        CUDA card), with its compiled parameters taken as they are."""
+        """Build from a state of either package (:meth:`__getstate__`) on
+        ``device`` (by default that of its tensors, else the CUDA card),
+        with its compiled parameters taken as they are."""
         new = cls.__new__(cls)
-        new._derived = {}
-        new._engine = None
-        new._extra_params = {}
-        new._input_params = dict(state.get('input_params', {}))
-        params = dict(state['params'])
-        new._params = _to_batch(params, _infer_device(params, device))
-        if state.get('engine', None) is not None:
-            new.set_engine(state['engine']['name'], **state['engine']['extra_params'])
+        new._setstate(state, device)
         return new
+
+    @classmethod
+    def read(cls, filename, device=None):
+        """Read a cosmology that :meth:`write` (of either package) wrote:
+        '.json', else '.npy'."""
+        return cls.from_state(utils.read_state(filename), device=device)
+
+    def write(self, filename):
+        """Write the state to ``filename``: JSON if it ends in '.json', else
+        ``np.save``; the JAX package reads both."""
+        utils.write_state(filename, self.__getstate__())
+
+    @classmethod
+    def load(cls, filename, device=None):
+        """Deprecated. Use :meth:`read`."""
+        warnings.warn('load() is deprecated, use read() instead.', DeprecationWarning, stacklevel=2)
+        return cls.read(filename, device=device)
+
+    def save(self, filename):
+        """Deprecated. Use :meth:`write`."""
+        warnings.warn('save() is deprecated, use write() instead.', DeprecationWarning, stacklevel=2)
+        return self.write(filename)
+
+    @classmethod
+    def get_default_parameters(cls, *args, **kwargs):
+        """Deprecated. Use :meth:`get_default_params`."""
+        warnings.warn('get_default_parameters is deprecated, use get_default_params', DeprecationWarning, stacklevel=2)
+        return cls.get_default_params(*args, **kwargs)
+
+    def copy(self):
+        """A shallow copy: the engine and the parameter dicts are shared."""
+        new = self.__class__.__new__(self.__class__)
+        new.__dict__.update(self.__dict__)
+        return new
+
+    # the state names no device: copies keep this cosmology's
+    __copy__ = copy
+
+    def __deepcopy__(self, memo):
+        return self.from_state(self.__getstate__(), device=self.device)
+
+    def __eq__(self, other):
+        return type(other) == type(self) and _deepeq(other._params, self._params) and other._engine == self._engine
+
+    def __hash__(self):
+        return object.__hash__(self)
 
     def __getattr__(self, name):
         """Forward attribute access to the engine's sections, e.g.
@@ -1259,8 +1429,8 @@ class DefaultBackground(BaseBackground):
         (1 + znorm)/(1 + z) convention if ``znorm`` is given)."""
         factor, _ = self._growth_tables(mass=mass)
         growthz = torch.movedim(factor(z), 0, -1)
-        if znorm is not None:
-            return (1.0 + znorm) * growthz
+        if znorm is not None:   # a float, or one per row
+            return batch_scalar(1.0 + znorm) * growthz
         return growthz / torch.movedim(factor(z.new_zeros(1)), 0, -1)
 
     @flatarray()

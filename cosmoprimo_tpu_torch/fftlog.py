@@ -1,5 +1,6 @@
-r"""FFTLog transforms (cosmoprimo_tpu/fftlog.py): FFTlog, PowerToCorrelation,
-CorrelationToPower, TophatVariance, ``pad`` and the Mellin kernels.
+r"""FFTLog transforms (cosmoprimo_tpu/fftlog.py): FFTlog, HankelTransform,
+PowerToCorrelation, CorrelationToPower, TophatVariance, GaussianVariance,
+``pad`` and the Mellin kernels.
 
 Computes :math:`G(y) = \int_0^\infty x\,dx\,F(x) K(xy)` for log-spaced x
 (Hamilton 2000). The setup (output grid, Mellin coefficients ``padded_u``,
@@ -307,6 +308,16 @@ class FFTlog(object):
         return y, out.reshape(shape + out.shape[-1:])
 
 
+class HankelTransform(FFTlog):
+    r"""Hankel transform: :math:`G(y) = \int_0^\infty x\,dx\,F(x) J_\nu(xy)`
+    (Bessel-J kernels, one per ``nu``)."""
+
+    def __init__(self, x, nu=0, **kwargs):
+        kernel = BesselJKernel(nu) if np.ndim(nu) == 0 else [BesselJKernel(n) for n in nu]
+        FFTlog.__init__(self, x, kernel, **kwargs)
+        self.padded_prefactor = self.padded_prefactor * self.padded_x ** 2
+
+
 class PowerToCorrelation(FFTlog):
     r"""P(k) -> xi_ell(s): :math:`\xi_\ell(s) = \frac{(-i)^\ell}{2\pi^2}
     \int dk\,k^2 P_\ell(k) j_\ell(ks)`."""
@@ -344,4 +355,13 @@ class TophatVariance(FFTlog):
     def __init__(self, k, q=0, **kwargs):
         kernel = TophatSqKernel(ndim=3)
         FFTlog.__init__(self, k, kernel, q=1.5 + q, **kwargs)
+        self.padded_prefactor = self.padded_prefactor * self.padded_x ** 3 / (2 * np.pi ** 2)
+
+
+class GaussianVariance(FFTlog):
+    r"""P(k) -> sigma^2(r) with a Gaussian window: the transform returns
+    :math:`\frac{1}{2\pi^2}\int dk\,k^2 P(k) e^{-(kr)^2}`."""
+
+    def __init__(self, k, q=0, **kwargs):
+        FFTlog.__init__(self, k, GaussianSqKernel(), q=1.5 + q, **kwargs)
         self.padded_prefactor = self.padded_prefactor * self.padded_x ** 3 / (2 * np.pi ** 2)

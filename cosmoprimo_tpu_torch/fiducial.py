@@ -1,9 +1,11 @@
 """Fiducial cosmologies (cosmoprimo_tpu/fiducial.py): DESI / AbacusSummit,
-Planck 2018, BOSS, Uchuu and the DESI DR2 w0waCDM best fit.
+Planck 2018, BOSS, Uchuu, the DESI DR2 w0waCDM best fit and the tabulated
+DESI background.
 
-The AbacusSummit parameter table is read in place from the JAX package's
-data folder (``cosmoprimo_tpu/data/abacus_cosmologies.csv``, the published
-AbacusSummit table); reading the file imports nothing of that package.
+The AbacusSummit parameter table and the DESI background table are read in
+place from the JAX package's data folder (``cosmoprimo_tpu/data/
+abacus_cosmologies.csv``, the published AbacusSummit table, and
+``desi.dat``); reading the files imports nothing of that package.
 Every factory takes ``device``; by default the cosmology is built on the
 CUDA card (see :class:`~cosmoprimo_tpu_torch.cosmology.Cosmology`).
 """
@@ -12,12 +14,13 @@ import csv
 import os
 import re
 
+import numpy as np
+import torch
+
 from . import constants
 from .cosmology import Cosmology, get_engine
 
 _dir_data = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'cosmoprimo_tpu', 'data')
-
-_TABULATED = 'needs the tabulated engine, which is not ported yet (ROADMAP.md, queue 1, slice 4b)'
 
 
 def Uchuu(name='Planck2015', engine=None, extra_params=None, device=None, **params):
@@ -131,14 +134,29 @@ def AbacusSummitBase(engine=None, precision=None, extra_params=None, device=None
 DESI = AbacusSummitBase
 
 
-def TabulatedDESI(*args, **kwargs):
-    """Tabulated DESI background: not ported yet."""
-    raise NotImplementedError(f'TabulatedDESI {_TABULATED}')
+_DESI_filename = os.path.join(_dir_data, 'desi.dat')
 
 
-def save_TabulatedDESI(*args, **kwargs):
-    """Regenerate TabulatedDESI's table: not ported yet."""
-    raise NotImplementedError(f'save_TabulatedDESI {_TABULATED}')
+def TabulatedDESI(device=None):
+    """Tabulated DESI background (z in [0, 100], relative interpolation
+    precision 1e-7 against the CLASS computation that made the table), read
+    in place from the JAX package's data folder."""
+    return DESI(engine='tabulated', extra_params={'filename': _DESI_filename,
+                                                  'names': ['efunc', 'comoving_radial_distance']}, device=device)
+
+
+def save_TabulatedDESI(engine=None, device=None):
+    """Write :func:`TabulatedDESI`'s table to ``_DESI_filename``: z,
+    efunc(z) and comoving_radial_distance(z) at z = [0] + logspace(-8, 2,
+    40001), from the DESI fiducial's background with ``engine`` (by default
+    'eisenstein_hu', whose background is closed form; cosmoprimo made the
+    shipped table with CLASS)."""
+    cosmo = DESI(engine=engine if engine is not None else 'eisenstein_hu', device=device)
+    z = np.concatenate([[0], np.logspace(-8, 2, 40001)], axis=0)
+    zz = torch.from_numpy(z).to(cosmo.device)
+    array = np.array([z, cosmo.efunc(zz).cpu().numpy(), cosmo.comoving_radial_distance(zz).cpu().numpy()]).T
+    header = 'z = [0] + np.logspace(-8, 2, 40001)\nz efunc(z) comoving_radial_distance(z) [Mpc/h]'
+    np.savetxt(_DESI_filename, array, fmt='%.18e', header=header, comments='# ')
 
 
 def DESIDR2Flatw0waCDM(engine=None, precision=None, extra_params=None, device=None, **params):

@@ -13,7 +13,7 @@ import torch
 from .. import constants, utils
 from ..cosmology import BaseEngine, BaseSection, CosmologyInputError, DefaultBackground, register_engine
 from ..interpolator import PowerSpectrumInterpolator1D, PowerSpectrumInterpolator2D
-from ..ops import flatarray
+from ..ops import batch_scalar, flatarray
 from .halofit import halofit_pk_interpolator
 from .hmcode import HMCODE_NAMES, hmcode_pk_interpolator
 
@@ -104,8 +104,8 @@ class Background(DefaultBackground):
             return 1.0 / (1 + z) * 5 * Om / 2.0 / (Om ** (4.0 / 7.0) - Ode + (1.0 + Om / 2.0) * (1 + Ode / 70.0))
 
         growthz = growth(z)
-        if znorm is not None:
-            return (1.0 + znorm) * growthz
+        if znorm is not None:   # a float, or one per row
+            return batch_scalar(1.0 + znorm) * growthz
         return growthz / growth(torch.zeros_like(z))
 
     @flatarray()
@@ -144,9 +144,11 @@ class Primordial(BaseSection):
     def A_s(self):
         return self._A_s * self._rsigma8 ** 2
 
+    @flatarray()
     def pk_k(self, k, mode='scalar'):
         r"""Primordial curvature spectrum :math:`\mathcal{P}_\mathcal{R}(k)`
-        in (Mpc/h)^3 at 1D ``k`` (h/Mpc), with runnings alpha_s, beta_s."""
+        in (Mpc/h)^3 at ``k`` (h/Mpc), with runnings alpha_s, beta_s: batch
+        + k.shape."""
         ['scalar'].index(mode)
         k_pivot = self.k_pivot[..., None]
         lnkkp = torch.log(k / k_pivot)
@@ -235,15 +237,25 @@ class Fourier(BaseSection):
                 lin = self.pk_interpolator(of=of, **kwargs)
                 return halofit_pk_interpolator(lin, self.ba, w0=self._w0, wa=self._wa, fnu=self._fnu)
             if non_linear in HMCODE_NAMES:
-                # EH98 does not distinguish the cold field
+                # sigma(R) from the cold field where the engine has one, the
+                # two-halo term from the total matter
                 lin_m = self.pk_interpolator(of='delta_m', **kwargs)
                 hm_params = dict(self._hm_params)
                 if non_linear == 'mead2020_feedback':
                     hm_params['logT_AGN'] = self._logT_AGN
-                return hmcode_pk_interpolator(lin_m, self.ba, hm_params)
+                return hmcode_pk_interpolator(lin_m, self.ba, hm_params, pk2d_cb=self._pk_interpolator_cb(**kwargs))
             raise CosmologyInputError(f'non_linear={non_linear!r} is not supported; '
                                       "use 'halofit' (Takahashi 2012), 'mead' (HMcode-2020) "
                                       "or 'mead2020_feedback' (HMcode-2020 + T_AGN baryons)")
+        return self._linear_pk_interpolator(of, **kwargs)
+
+    def _pk_interpolator_cb(self, **kwargs):
+        """The linear P(k) of the cold (cdm + baryons) field, for HMcode;
+        EH98 does not tell it from the total matter: None."""
+        return None
+
+    def _linear_pk_interpolator(self, of, **kwargs):
+        """The linear P(k, z) interpolator for ``of`` (one name or two)."""
         if isinstance(of, str):
             of = (of,)
         of = list(of)

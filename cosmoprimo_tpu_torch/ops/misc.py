@@ -6,23 +6,51 @@ import numpy as np
 import torch
 
 
+def bcast_dtype(*args):
+    """The dtype of a result computed from ``args`` (the JAX package's
+    rule): float64 if any argument is float64 or has no dtype (a Python
+    float, a list), or if none is floating; else the first floating
+    argument's dtype, e.g. float32 for float32 inputs. ``None`` and integer
+    arrays do not count."""
+    dtypes = []
+    for arg in args:
+        if arg is None:
+            continue
+        dtype = getattr(arg, 'dtype', None)
+        if dtype is None:
+            dtypes.append(torch.float64)
+        elif isinstance(dtype, torch.dtype):
+            if dtype.is_floating_point:
+                dtypes.append(dtype)
+        elif np.issubdtype(dtype, np.floating):
+            dtypes.append(torch.from_numpy(np.zeros(0, dtype=dtype)).dtype)
+    if not dtypes or torch.float64 in dtypes:
+        return torch.float64
+    return dtypes[0]
+
+
 def flatarray(iargs=(0,)):
     """Decorator for methods taking array arguments at positions ``iargs``
     (after ``self``): each is made a float64 tensor on ``self.device`` and
     raveled to 1D for the computation, and the last axis of the output is
     reshaped back to the shape of the first, so scalar in gives the batch
-    shape out. Leading output axes (the batch) are kept."""
+    shape out. Leading output axes (the batch) are kept. The output is cast
+    to :func:`bcast_dtype` of the arguments, float32 in giving float32 out;
+    a float64 output is returned as it is."""
     def decorator(func):
 
         @functools.wraps(func)
         def wrapper(self, *args, **kwargs):
             args = list(args)
             shapes = []
+            dtype = bcast_dtype(*[args[i] for i in iargs])
             for i in iargs:
                 array = torch.as_tensor(args[i], dtype=torch.float64, device=self.device)
                 shapes.append(array.shape)
                 args[i] = array.reshape(-1)
             toret = func(self, *args, **kwargs)
+            if dtype != torch.float64:
+                toret = toret.to(dtype)
             return toret.reshape(toret.shape[:-1] + shapes[0])
 
         return wrapper

@@ -1,6 +1,6 @@
 """Batched fixed-cap loops and root finding (cosmoprimo_tpu/ops/roots.py::
-for_cond_loop and bisect), for the Newton iterations of the neutrino sector
-and the reionization redshift."""
+for_cond_loop, bracket and bisect), for the Newton iterations of the
+neutrino sector, the reionization redshift and ``Cosmology.solve``."""
 
 import torch
 
@@ -27,6 +27,35 @@ def for_cond_loop(lower, upper, cond_fun, body_fun, init_val):
         new = body_fun(i, val)
         val = tuple(torch.where(active, n, v) for n, v in zip(new, val))
     return val
+
+
+def bracket(f, init, maxiter=15):
+    """A sign change of ``f`` per row, stepping from ``init`` = (x1, dx) or
+    (x1, dx, f1): x1 moves by -1.5 dx while f keeps its sign. ``f`` maps a
+    tensor of the batch shape to one of the same shape; x1 and dx are floats
+    or such tensors. Returns (lo, hi), the last two points of each row, lo
+    <= hi.
+
+    Every row takes ``maxiter`` steps, a row that has found its sign change
+    (or started on a root) frozen by ``torch.where``, as the vmapped JAX
+    loop is: nothing is read on the host."""
+    if len(init) == 2:
+        x1, dx = init
+        f1 = f(x1)
+    else:
+        x1, dx, f1 = init
+    x1 = torch.as_tensor(x1, dtype=f1.dtype, device=f1.device).expand(f1.shape)
+    dx = 1.5 * dx
+    running = f1 ** 2 > 0
+    x0, x2 = x1, x1 - dx
+    for _ in range(maxiter):
+        new = x1 - dx
+        f2 = f(new)
+        step = running
+        running = step & (f1 * f2 > 0)
+        x0, x2 = torch.where(step, x1, x0), torch.where(step, new, x2)
+        x1, f1 = torch.where(running, new, x1), torch.where(running, f2, f1)
+    return torch.minimum(x0, x2), torch.maximum(x0, x2)
 
 
 def bisect(f, limits, flimits=None, xtol=1e-6, maxiter=100, method='ridders'):

@@ -1,7 +1,8 @@
-"""The batched pipelines (cosmoprimo_tpu/pipelines.py): the pk -> xi
-pipeline (make_pk_to_xi_pipeline_batched and apply_non_linear), linear or
-through halofit or HMcode-2020, and the native Boltzmann P(k) pipeline
-(make_native_pk_pipeline_batched)."""
+"""The pipelines (cosmoprimo_tpu/pipelines.py): the pk -> xi pipeline
+(make_pk_to_xi_pipeline_batched, its per-cosmology form
+make_pk_to_xi_pipeline, and apply_non_linear), linear or through halofit or
+HMcode-2020, the distance pipeline (make_distance_pipeline) and the native
+Boltzmann P(k) pipeline (make_native_pk_pipeline_batched)."""
 
 import functools
 
@@ -85,6 +86,35 @@ def make_pk_to_xi_pipeline_batched(nk=1024, kmin=1e-5, kmax=1e2, engine='eisenst
         return xi, chi, sigma8
 
     return fn, k_np, np.asarray(p2c.y[0])
+
+
+def make_pk_to_xi_pipeline(nk=1024, kmin=1e-5, kmax=1e2, engine='eisenstein_hu', z=(0.0,), fft_engine='auto',
+                           non_linear=False):
+    """The per-cosmology pipeline: (fn, k, s), where ``fn(omega_cdm,
+    omega_b, h, n_s, logA)`` takes 0-d tensors and returns xi (nz, nk), chi
+    (3,) and sigma8 (), as :func:`make_pk_to_xi_pipeline_batched` does at
+    the batch shape () (the port is batch-first, so one cosmology is a batch
+    of shape ()). ``torch.func.jacfwd`` of ``fn`` gives the Fisher
+    derivatives."""
+    return make_pk_to_xi_pipeline_batched(nk=nk, kmin=kmin, kmax=kmax, engine=engine, z=z, fft_engine=fft_engine,
+                                          non_linear=non_linear)
+
+
+def make_distance_pipeline(engine='eisenstein_hu', zq=None):
+    """(fn, zq): ``fn(omega_cdm, omega_b, h)`` (tensors of one batch shape)
+    returns the comoving radial distances (Mpc/h) at ``zq`` (by default 60
+    redshifts from 0.05 to 3): batch + (nzq,)."""
+    zq = np.linspace(0.05, 3.0, 60) if zq is None else np.asarray(zq, dtype=np.float64)
+
+    @functools.lru_cache(maxsize=None)
+    def grid(device):
+        return torch.from_numpy(zq).to(device)
+
+    def fn(omega_cdm, omega_b, h):
+        cosmo = Cosmology(omega_cdm=omega_cdm, omega_b=omega_b, h=h, engine=engine)
+        return cosmo.get_background().comoving_radial_distance(grid(cosmo.device))
+
+    return fn, zq
 
 
 def make_native_pk_pipeline_batched(nk=256, kmax=1.0, z=(0.0, 1.0)):

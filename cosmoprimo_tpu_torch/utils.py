@@ -1,8 +1,19 @@
-"""General utilities (the part of cosmoprimo_tpu/utils.py this port needs):
-``addproperty`` and the constrained least-squares solver."""
+"""General utilities (cosmoprimo_tpu/utils.py): ``addproperty``, the state
+files (``write_state``, ``read_state``), the constrained least-squares
+solver and the distance-to-redshift inversion."""
+
+import json
+import os
 
 import numpy as np
 import torch
+
+from .ops import Interpolator1D, cubic_eval_rows, interp, natural_cubic_coeffs_rows
+
+
+def mkdir(dirname):
+    if dirname:
+        os.makedirs(dirname, exist_ok=True)
 
 
 def addproperty(*attrs):
@@ -16,6 +27,94 @@ def addproperty(*attrs):
         return cls
 
     return decorator
+
+
+def _prepare_for_json(state):
+    """Arrays (numpy, or tensors) in ``state`` as JSON objects, recursively:
+    the JAX package's format."""
+    if isinstance(state, dict):
+        return {key: _prepare_for_json(value) for key, value in state.items()}
+    if isinstance(state, (list, tuple)):
+        return [_prepare_for_json(value) for value in state]
+    if isinstance(state, torch.Tensor):
+        state = state.detach().cpu().numpy()
+    if isinstance(state, np.ndarray):
+        return {'__array__': state.tolist(), 'dtype': str(state.dtype)}
+    if isinstance(state, np.generic):
+        return state.item()
+    return state
+
+
+def _restore_from_json(state):
+    if isinstance(state, dict):
+        if '__array__' in state:
+            return np.array(state['__array__'], dtype=state['dtype'])
+        return {key: _restore_from_json(value) for key, value in state.items()}
+    if isinstance(state, list):
+        return [_restore_from_json(value) for value in state]
+    return state
+
+
+def write_state(filename, state):
+    """Write ``state`` (a dict of numpy arrays and Python values) as JSON
+    if ``filename`` ends in '.json', else with ``np.save``; the files of
+    the JAX package's ``write_state``."""
+    filename = str(filename)
+    mkdir(os.path.dirname(filename))
+    if filename.endswith('.json'):
+        with open(filename, 'w') as file:
+            json.dump(_prepare_for_json(state), file)
+    else:
+        np.save(filename, state, allow_pickle=True)
+
+
+def read_state(filename):
+    """The state that :func:`write_state` (of either package) wrote."""
+    filename = str(filename)
+    if filename.endswith('.json'):
+        with open(filename, 'r') as file:
+            return _restore_from_json(json.load(file))
+    return np.load(filename, allow_pickle=True)[()]
+
+
+class DistanceToRedshift(object):
+    """Redshift of a distance, inverting the monotonic ``distance(z)`` by a
+    natural cubic spline (``interp_order`` = 3) or linearly (else) in z
+    against the distance, at the redshifts 0 and ``nz - 1`` geometric ones
+    from 1e-8 to ``zmax``; NaN outside them.
+
+    ``distance`` takes the (nz,) z grid as a CPU tensor (the port's
+    background methods move it to their device) and returns (nz,) for one
+    cosmology (shared knots, :class:`~ops.Interpolator1D`) or batch + (nz,)
+    for a batch (knots per row: the tridiagonal solves of
+    :func:`~ops.natural_cubic_coeffs_rows`), on the device where the
+    inversion then runs."""
+
+    def __init__(self, distance, zmax=100.0, nz=2048, interp_order=3):
+        zgrid = torch.from_numpy(np.concatenate([[0.0], np.geomspace(1e-8, zmax, nz - 1)]))
+        self.dgrid = distance(zgrid)
+        self.zgrid = zgrid.to(self.dgrid.device)
+        self._cubic = interp_order == 3
+        if self.dgrid.dim() == 1:
+            self._interp = Interpolator1D(self.dgrid, self.zgrid, k=interp_order, assume_sorted=True)
+        elif self._cubic:
+            self._M = natural_cubic_coeffs_rows(self.dgrid, self.zgrid)
+
+    def __call__(self, distance):
+        """z at ``distance``: of its shape for one cosmology; for a batch,
+        ``distance`` broadcasts against batch + (m,) (the last axis holds
+        each row's queries) and so does the result."""
+        distance = torch.as_tensor(distance, dtype=torch.float64, device=self.zgrid.device)
+        if self.dgrid.dim() == 1:
+            return self._interp(distance)
+        shape = torch.broadcast_shapes(distance.shape, self.dgrid.shape[:-1] + (1,))
+        distance = distance.expand(shape)
+        if self._cubic:
+            z = cubic_eval_rows(self.dgrid, self.zgrid, self._M, distance)
+        else:
+            z = interp(distance, self.dgrid, self.zgrid)
+        inside = (distance >= self.dgrid[..., :1]) & (distance <= self.dgrid[..., -1:])
+        return torch.where(inside, z, torch.nan)
 
 
 class LeastSquareSolver(object):

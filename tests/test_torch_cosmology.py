@@ -144,16 +144,17 @@ def test_invalid_rows_are_nan():
 
 def test_not_ported_yet():
     """Massive neutrinos, the hierarchies and a JAX state with them are
-    ported; the tabulated engine and its fiducial are not (slice 4b)."""
+    ported, and so are the analytic engines (slice 4b); the Boltzmann-code
+    wrappers and the emulators are not (slice 6)."""
     assert Cosmology(engine='eisenstein_hu', m_ncdm=0.06, device='cpu')['N_ncdm'] == 1
     assert Cosmology(engine='eisenstein_hu', neutrino_hierarchy='normal', m_ncdm=0.1, device='cpu')['N_ncdm'] == 3
     state = jcp.Cosmology(engine='eisenstein_hu', m_ncdm=0.06).__getstate__()
     assert Cosmology.from_state(state, device='cpu')['N_ncdm'] == 1
-    with pytest.raises(CosmologyInputError, match='Unknown engine tabulated'):
-        Cosmology(engine='tabulated', device='cpu')
-    from cosmoprimo_tpu_torch.fiducial import TabulatedDESI
-    with pytest.raises(NotImplementedError, match='slice 4b'):
-        TabulatedDESI()
+    for engine in ('bbks', 'eisenstein_hu_nowiggle_variants'):
+        assert Cosmology(engine=engine, device='cpu').engine.name == engine
+    for engine in ('class', 'camb', 'emulated'):
+        with pytest.raises(CosmologyInputError, match=f'Unknown engine {engine}'):
+            Cosmology(engine=engine, device='cpu')
 
 
 def test_default_device(monkeypatch):

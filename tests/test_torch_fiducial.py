@@ -15,7 +15,7 @@ import torch
 jax = pytest.importorskip('jax')
 
 from cosmoprimo_tpu import fiducial as jfiducial  # noqa: E402
-from cosmoprimo_tpu_torch import fiducial  # noqa: E402
+from cosmoprimo_tpu_torch import CosmologyInputError, fiducial  # noqa: E402
 
 RTOL = 1e-12
 
@@ -57,7 +57,12 @@ def test_factories_against_jax(name):
     assert got.device == torch.device('cpu')
 
 
-def test_tabulated_not_ported():
-    for factory in (fiducial.TabulatedDESI, fiducial.save_TabulatedDESI):
-        with pytest.raises(NotImplementedError, match='slice 4b'):
-            factory()
+def test_tabulated_not_ported(tmp_path, monkeypatch):
+    """TabulatedDESI and save_TabulatedDESI are ported (tests/test_torch_
+    tabulated.py); the engine that made the shipped table, CLASS, is not
+    (slice 6): regenerating it with engine='class' raises before it writes."""
+    assert fiducial.TabulatedDESI(device='cpu').engine.name == 'tabulated'
+    monkeypatch.setattr(fiducial, '_DESI_filename', str(tmp_path / 'desi.dat'))
+    with pytest.raises(CosmologyInputError, match='Unknown engine class'):
+        fiducial.save_TabulatedDESI(engine='class', device='cpu')
+    assert not (tmp_path / 'desi.dat').exists()

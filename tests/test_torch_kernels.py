@@ -7,8 +7,9 @@ them without the conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda
 
 Bar: max|kernel - plain| / max|plain| <= 1e-12 in every row, forward,
-backward and forward mode (jvp, vmap), complex multipoles included; both
-are float64 FFTs of the same data in another order of operations. The bar
+backward and forward mode (jvp, vmap), complex multipoles and the Hankel
+and Gaussian-variance transforms included; both are float64 FFTs of the
+same data in another order of operations. The bar
 is per row because the kernel transforms two rows in one complex FFT: a bar
 over the whole batch would hide one row leaking into its partner.
 """
@@ -19,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from cosmoprimo_tpu_torch import CorrelationToPower, PowerToCorrelation, TophatVariance
+from cosmoprimo_tpu_torch import CorrelationToPower, GaussianVariance, HankelTransform, PowerToCorrelation, TophatVariance
 from cosmoprimo_tpu_torch.ops import fftlog_kernel
 
 BAR = 1e-12
@@ -197,6 +198,50 @@ def test_bao_template_shapes_on_cuda(cuda_device, direction, rows):
     gk, = torch.autograd.grad(fftlog_kernel.fftlog_core(xk, *args), xk, grad_out)
     gp, = torch.autograd.grad(fftlog_kernel.fftlog_core_torch(xp, *args), xp, grad_out)
     assert norm_err(gk, gp) <= BAR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('transform', [functools.partial(HankelTransform, nu=0, q=0.5), GaussianVariance,
+                                       functools.partial(HankelTransform, nu=[0, 1, 2], q=0.5)])
+def test_hankel_gaussian_on_cuda(cuda_device, transform):
+    """HankelTransform and GaussianVariance through the kernel at 4096 rows
+    (1024 -> 2048) against the plain version, per row: forward, backward
+    and forward mode."""
+    k = np.geomspace(1e-5, 1e2, 1024)
+    tr, plain = transform(k, engine='kernel'), transform(k, engine='torch')
+    pk, tangent = (a.to(cuda_device) for a in smooth_rows(k, 4096, 13))
+    if tr.nparallel > 1:
+        pk, tangent = pk[:4095].reshape(1365, 3, 1024), tangent[:4095].reshape(1365, 3, 1024)
+    launches = fftlog_kernel.launches
+    got = tr(pk)[1]
+    assert fftlog_kernel.launches == launches + 1
+    assert norm_err(got, plain(pk)[1]) <= BAR
+    grad_out = torch.from_numpy(np.random.default_rng(15).normal(size=tuple(got.shape))).to(cuda_device)
+    xk, xp = pk.clone().requires_grad_(True), pk.clone().requires_grad_(True)
+    gk, = torch.autograd.grad(tr(xk)[1], xk, grad_out)
+    gp, = torch.autograd.grad(plain(xp)[1], xp, grad_out)
+    assert norm_err(gk, gp) <= BAR
+    _, jvp = torch.func.jvp(lambda f: tr(f)[1], (pk,), (tangent,))
+    _, jvp_ref = torch.func.jvp(lambda f: plain(f)[1], (pk,), (tangent,))
+    assert norm_err(jvp, jvp_ref) <= BAR
+
+
+@pytest.mark.cuda
+def test_batched_solve_on_cuda(cuda_device):
+    """Cosmology.solve('h', 'theta_MC_100', target) for 64 rows on the card
+    against the same solve on CPU tensors: h rtol 1e-10."""
+    from cosmoprimo_tpu_torch import Cosmology
+    rng = np.random.default_rng(14)
+    params = [rng.uniform(0.11, 0.13, 64), rng.uniform(0.021, 0.023, 64)]
+    target = rng.uniform(1.035, 1.045, 64)
+
+    def solve(device):
+        oc, ob, t = (torch.from_numpy(v).to(device) for v in params + [target])
+        return Cosmology(omega_cdm=oc, omega_b=ob, engine='eisenstein_hu').solve('h', 'theta_MC_100', target=t)['h']
+
+    got, ref = solve(cuda_device).cpu(), solve('cpu')
+    assert bool(torch.isfinite(got).all())
+    assert ((got / ref - 1).abs().max().item()) <= 1e-10
 
 
 def native_inputs(device):

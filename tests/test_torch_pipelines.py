@@ -28,7 +28,10 @@ jax = pytest.importorskip('jax')
 import jax.numpy as jnp  # noqa: E402
 
 from cosmoprimo_tpu.pipelines import make_pk_to_xi_pipeline_batched as jmake  # noqa: E402
-from cosmoprimo_tpu_torch import make_pk_to_xi_pipeline_batched  # noqa: E402
+from cosmoprimo_tpu.pipelines import make_distance_pipeline as jmake_distance  # noqa: E402
+from cosmoprimo_tpu.pipelines import make_pk_to_xi_pipeline as jmake_single  # noqa: E402
+from cosmoprimo_tpu_torch import (make_distance_pipeline, make_pk_to_xi_pipeline,  # noqa: E402
+                                  make_pk_to_xi_pipeline_batched)
 
 B = 4
 XI_BAR = 1e-12
@@ -112,6 +115,58 @@ def test_pipeline_jacfwd_and_vjp_against_jax():
     grads = torch.autograd.grad(loss, [leaves[i] for i in DERIV_ARGNUMS])
     for got, ref in zip(grads, grads_ref):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-10)
+
+
+@pytest.mark.parametrize('non_linear', [False, 'halofit'])
+def test_per_cosmology_pipeline_against_jax(non_linear):
+    """make_pk_to_xi_pipeline: 0-d tensors in, the JAX fn's shapes out
+    (xi (nz, nk), chi (3,), sigma8 ()), and its Fisher derivatives in all
+    five parameters by torch.func.jacfwd against jax.jacfwd. Bars, of each
+    output's max: xi 1e-12 (measured 3.7e-14), 1e-11 with halofit (2.9e-14);
+    its derivatives 1e-12 (1.7e-13), 1e-10 with halofit (2.2e-12); chi and
+    sigma8 and theirs 1e-13 (<= 1.0e-15)."""
+    args = [a[0] for a in make_args(1, seed=5)]
+    z = (0.0, 1.0)
+    fn, k, s = make_pk_to_xi_pipeline(nk=128, z=z, non_linear=non_linear, fft_engine='kernel')
+    jfn, jk, js = jmake_single(nk=128, z=jnp.asarray(z), non_linear=non_linear)
+    np.testing.assert_allclose(s, js, rtol=RTOL)
+    targs = [torch.tensor(a, dtype=torch.float64) for a in args]
+    got = fn(*targs)
+    ref = jax.jit(jfn)(*args)
+    assert [tuple(o.shape) for o in got] == [(2, 128), (3,), ()]
+    bars = (XI_BAR if not non_linear else 1e-11, RTOL, RTOL)
+    for o, r, bar in zip(got, ref, bars):
+        assert np.abs(o.numpy() - np.asarray(r)).max() <= bar * np.abs(np.asarray(r)).max()
+    jac = torch.func.jacfwd(fn, argnums=(0, 1, 2, 3, 4))(*targs)
+    jac_ref = jax.jit(jax.jacfwd(jfn, argnums=(0, 1, 2, 3, 4)))(*args)
+    bars = (1e-10 if non_linear else XI_BAR, RTOL, RTOL)
+    for out, bar in zip(range(3), bars):
+        for got_d, ref_d in zip(jac[out], jac_ref[out]):
+            ref_d = np.asarray(ref_d)
+            assert tuple(got_d.shape) == ref_d.shape
+            assert np.abs(got_d.numpy() - ref_d).max() <= bar * np.abs(ref_d).max()
+
+
+def test_distance_pipeline_against_jax():
+    """make_distance_pipeline and the Fisher contract of
+    tests/test_pipelines.py::test_fisher_jacfwd: jacfwd of chi(zq) in
+    (omega_cdm, omega_b, h), one cosmology at a time as the JAX fn, and the
+    batch in one call (rtol 1e-12, measured 6.7e-16, and 4.0e-16 for the
+    Jacobian)."""
+    fn, zq = make_distance_pipeline()
+    jfn, jzq = jmake_distance()
+    np.testing.assert_allclose(zq, jzq, rtol=1e-15)
+    args = [a[:3] for a in make_args(3, seed=6)[:3]]
+    batch = fn(*[torch.from_numpy(a) for a in args])
+    assert tuple(batch.shape) == (3, 60)
+    for i in range(3):
+        row = [torch.tensor(a[i], dtype=torch.float64) for a in args]
+        np.testing.assert_allclose(fn(*row).numpy(), np.asarray(jax.jit(jfn)(*[a[i] for a in args])), rtol=1e-12)
+        np.testing.assert_allclose(batch[i].numpy(), fn(*row).numpy(), rtol=1e-15)
+        jac = torch.stack(torch.func.jacfwd(fn, argnums=(0, 1, 2))(*row), dim=-1)
+        jac_ref = np.stack(jax.jit(jax.jacfwd(jfn, argnums=(0, 1, 2)))(*[a[i] for a in args]), axis=-1)
+        assert tuple(jac.shape) == jac_ref.shape == (60, 3)
+        np.testing.assert_allclose(jac.numpy(), jac_ref, rtol=1e-12, atol=1e-12 * np.abs(jac_ref).max())
 
 
 def test_import_without_jax():
