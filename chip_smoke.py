@@ -93,9 +93,9 @@ Phases, each failing the run (non-zero exit) if its check fails:
 15. the EH99 variants with one massive species (m_ncdm ~ U(0.06, 0.12) eV,
     N_eff = 3.044) at B = 4096, nk = 384, the seven DESI DR1 redshifts:
     pk_interpolator(non_linear='mead'), whose sigma(R) comes from the cold
-    field (pk2d_cb), and 'halofit', then PowerToCorrelation of each table
-    through the kernel (two launches); P(k) and xi against the CPU on 32
-    rows at 1e-10;
+    field (pk2d_cb), and 'halofit', then to_xi of each table on its default
+    grid (1e-7 ... 1e2 h/Mpc) through the kernel (two launches); P(k) and xi
+    against the CPU on 32 rows at 1e-10;
 16. Cosmology.solve('h', 'theta_MC_100', target) at B = 4096, targets
     ~ U(1.035, 1.045): h against the CPU on 32 rows at rtol 1e-10, and
     |theta_MC_100 - target| <= |d theta / dh| xtol in every row (Ridders
@@ -106,9 +106,26 @@ Phases, each failing the run (non-zero exit) if its check fails:
     table against DESI()'s closed-form background within 1e-4
     (tests/test_fiducial.py), and the card against the CPU on 32 entries.
 
+18. the native CMB spectra: Cosmology(engine='native', ellmax_cl=2500,
+    r=0.05) on B = 8 cosmologies, get_harmonic()'s unlensed_cl, lensed_cl
+    and lens_potential_cl (lmax 2900 with the default lensing margin,
+    tensors to l = 600), the first call and one more: shapes, finite, TT and
+    BB > 0, the wall, the peak memory, each stage's wall (recombination,
+    sources, projection, Limber, tensor sources and projection, lensing);
+    then the card against the CPU on 2 cosmologies at ellmax_cl = 200,
+    lensing_margin = 64 and the step budget (2048, 768, 2048), N_STEPS_T =
+    2048: each spectrum within 1e-8 of its max, TE of its sqrt(TT EE);
+19. DESI(engine='native').get_perturbations().table() at the default
+    k_output_values (0.01, 0.1, 1.0) h/Mpc, the card against the CPU, each
+    field within 1e-9 of its max;
+20. the emitting loops (compute_los_sources, compute_perturbation_series,
+    compute_tensor_sources) replayed from CUDA graphs against eager on the
+    card, 4 cosmologies, 66 k to 0.05 /Mpc, n_steps = (768, 384, 2048) and
+    N_STEPS_T = 2048: within 1e-13.
+
 Each of phases 14-17 prints its wall (median of 5 after a warm-up). The
-kernel's launches in the main-path runs of phases 4-8, 11, 14 and 15 are
-summed into the "kernels" line. The last line is {"ok": true, "device":
+kernel's launches in the main-path runs of phases 4-8, 11, 14, 15 and 18
+are summed into the "kernels" line. The last line is {"ok": true, "device":
 {...}}. Imports nothing of JAX.
 """
 
@@ -177,6 +194,17 @@ N_MOCK = 10 ** 7
 ROUND_TRIP_RTOL = 1e-6     # z -> chi -> z, tests/test_utils.py
 TABULATED_RTOL = 1e-4      # TabulatedDESI against DESI()'s closed form, tests/test_fiducial.py
 TIMED_LAUNCHES = 100       # per turn; two turns of each
+# slice 5b: the native CMB spectra at full width (ellmax_cl = 2500 and the
+# default lensing margin of 400: lmax 2900; tensors to l = 600), checked
+# against the CPU at a cut size and step budget, the Perturbations table of
+# the DESI fiducial, and the emitting loops replayed from graphs against eager
+B_CL = 8
+ELLMAX_CL = 2500
+R_CL = 0.05
+CL_CHECK = dict(rows=2, ellmax=200, extra={'lensing_margin': 64}, n_steps=(2048, 768, 2048), n_steps_t=2048)
+CL_RTOL = 1e-8             # each spectrum's max (TE: its sqrt(TT EE) envelope), card against CPU
+SERIES_RTOL = 1e-9         # each field's max, card against CPU
+EMIT_GRAPH = dict(rows=4, kmax=0.05, n_steps=(768, 384, 2048), n_steps_t=2048)
 
 
 def check(ok, message):
@@ -609,8 +637,8 @@ def analytic_engines(fftlog_kernel, rng, card):
     """Phases 14 and 15: the BBKS and EH99-variants engines through the
     pk -> xi pipeline at full width, then the variants with one massive
     species through HMcode (its cold field for sigma(R)) and halofit, and
-    PowerToCorrelation of each table. Returns the kernel's launches."""
-    from cosmoprimo_tpu_torch import Cosmology, PowerToCorrelation, make_pk_to_xi_pipeline_batched
+    to_xi of each table. Returns the kernel's launches."""
+    from cosmoprimo_tpu_torch import Cosmology, make_pk_to_xi_pipeline_batched
     launches = 0
     # 14. full width, one FFTLog launch each
     for engine in ANALYTIC_ENGINES:
@@ -622,10 +650,6 @@ def analytic_engines(fftlog_kernel, rng, card):
     # 15. one massive species, the seven DESI redshifts
     params = cosmo_params(rng, B_VARIANTS) + (rng.uniform(0.06, 0.12, B_VARIANTS),)
     k_np = np.geomspace(1e-5, 1e2, NK_HMCODE)
-    # on the tables' own k grid: to_xi would spline them up to 1e2 h/Mpc,
-    # where the log-log padding puts knots 4e-10 apart in log10 k and the
-    # card and the CPU differ by ~1e-7 (PERF.md, ROADMAP queue 3)
-    p2c = PowerToCorrelation(k_np)
 
     def run(device, rows):
         omega_cdm, omega_b, h, n_s, logA, m_ncdm = (torch.from_numpy(p[rows]).to(device) for p in params)
@@ -633,9 +657,11 @@ def analytic_engines(fftlog_kernel, rng, card):
                        logA=logA, m_ncdm=[m_ncdm], N_eff=3.044).get_fourier()
         out = {}
         for non_linear in ('mead', 'halofit'):
-            pk = fo.pk_interpolator(non_linear=non_linear, k=k_np, z=DESI_Z).pk            # (B, nk, nz)
-            out[f'pk {non_linear}'] = pk
-            out[f'xi {non_linear}'] = p2c(pk.transpose(-1, -2))[1].transpose(-1, -2)   # one launch
+            interp = fo.pk_interpolator(non_linear=non_linear, k=k_np, z=DESI_Z)
+            out[f'pk {non_linear}'] = interp.pk                                          # (B, nk, nz)
+            # to_xi on its default grid, 1e-7 ... 1e2 h/Mpc: the table's last
+            # cell below 1e2 and its padding beyond; one launch
+            out[f'xi {non_linear}'] = interp.to_xi()._xi                                # (B, ns, nz)
         return out
 
     torch.cuda.reset_peak_memory_stats()
@@ -742,6 +768,174 @@ def mock_redshifts(card):
     check(bool(torch.isfinite(z_back).all()), 'the inversion left NaN redshifts')
     check(closed <= TABULATED_RTOL and round_trip <= ROUND_TRIP_RTOL and cpu <= CHI_SIGMA8_RTOL,
           'the mock redshifts are wrong')
+
+
+def _patched(pairs):
+    """Set each (module, name, value) and return the old values, to restore."""
+    old = [(module, name, getattr(module, name)) for module, name, _ in pairs]
+    for module, name, value in pairs:
+        setattr(module, name, value)
+    return old
+
+
+def cmb_spectra(fftlog_kernel, rng, card):
+    """Phase 18: the native CMB spectra of B_CL cosmologies through
+    Cosmology(engine='native').get_harmonic() at full width, twice (the
+    first call and one more, each a new Cosmology), with each stage's wall;
+    then the card against the CPU on CL_CHECK['rows'] cosmologies at a cut
+    size and step budget. Returns the FFTLog kernel's launches in the main
+    path's run (the path reaches no FFTLog)."""
+    from cosmoprimo_tpu_torch import Cosmology
+    from cosmoprimo_tpu_torch.boltzmann import harmonic, perturbations, tensor
+    from cosmoprimo_tpu_torch.models import native
+    params = cosmo_params(rng, B_CL)
+
+    def spectra(device, rows, ellmax, extra=None):
+        p = [torch.from_numpy(v[rows]).to(device) for v in params]
+        cosmo = Cosmology(omega_cdm=p[0], omega_b=p[1], h=p[2], n_s=p[3], logA=p[4], r=R_CL, engine='native',
+                          ellmax_cl=ellmax, extra_params=extra or {})
+        hs = cosmo.get_harmonic()
+        return {'unlensed': hs.unlensed_cl(), 'lensed': hs.lensed_cl(), 'potential': hs.lens_potential_cl()}
+
+    stages = {}
+
+    def timed(label, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages[label] = stages.get(label, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    wrapped = [(native, 'compute_thermodynamics', 'recombination'), (harmonic, 'compute_los_sources', 'sources'),
+               (harmonic, 'project_sources', 'projection'), (harmonic, 'limber_pp', 'Limber'),
+               (tensor, 'compute_tensor_sources', 'tensor sources'),
+               (tensor, 'project_tensor_sources', 'tensor projection'), (native, 'lensed_cls', 'lensing')]
+    old = _patched([(module, name, timed(label, getattr(module, name))) for module, name, label in wrapped])
+    try:
+        walls, launches = [], None
+        for call in range(2):
+            stages.clear()
+            torch.cuda.reset_peak_memory_stats()
+            fftlog_kernel.launches = 0
+            t0 = time.perf_counter()
+            out = spectra(DEVICE, slice(None), ELLMAX_CL)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches = fftlog_kernel.launches if launches is None else launches
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            split = ', '.join(f'{label} {stages.get(label, 0.0):.3f} s' for _, _, label in wrapped)
+            split += f', the rest (set-up, Bessel tables, splines) {walls[-1] - sum(stages.values()):.3f} s'
+            print(f'CMB spectra, call {call + 1}: B={B_CL}, ellmax_cl={ELLMAX_CL} (lmax {ELLMAX_CL + 400}), r={R_CL} '
+                  f'(tensors to l = 600): wall {walls[-1]:.3f} s, peak memory {peak_gb:.2f} GB; stages: {split}; '
+                  f'FFTLog kernel launches {fftlog_kernel.launches} on {card}', flush=True)
+    finally:
+        _patched(old)
+    for kind, table in out.items():
+        for name, value in table.items():
+            if name == 'ell':
+                continue
+            check(tuple(value.shape) == (B_CL, ELLMAX_CL + 1), f'CMB {kind} {name} has the wrong shape')
+            check(bool(torch.isfinite(value).all()), f'CMB {kind} {name} is not finite')
+    # the unlensed BB is the tensors', to l = 600; lensing adds the E-mode's at every l
+    for kind, lmax_bb in (('unlensed', 600), ('lensed', ELLMAX_CL)):
+        check(bool((out[kind]['tt'][:, 2:] > 0).all()) and bool((out[kind]['bb'][:, 2:lmax_bb + 1] > 0).all()),
+              f'CMB {kind} TT or BB is not positive')
+    tt = out['lensed']['tt'][0].cpu().numpy()
+    ells = [l for l in (2, 220, 1000, 2500) if l <= ELLMAX_CL]
+    print(f'CMB spectra: lensed D_l^TT of cosmology 0 at l = {ells}: '
+          + ', '.join(f'{l * (l + 1) * tt[l] / (2 * np.pi) * (2.7255e6) ** 2:.2f} muK^2' for l in ells),
+          flush=True)
+
+    # the card against the CPU at a cut size and budget
+    cut = CL_CHECK
+    old = _patched([(perturbations, 'N_STEPS_A', cut['n_steps'][0]), (perturbations, 'N_STEPS_B', cut['n_steps'][1]),
+                    (perturbations, 'M_TAB', cut['n_steps'][2]), (tensor, 'N_STEPS_T', cut['n_steps_t'])])
+    try:
+        t0 = time.perf_counter()
+        got = spectra(DEVICE, slice(cut['rows']), cut['ellmax'], cut['extra'])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = spectra('cpu', slice(cut['rows']), cut['ellmax'], cut['extra'])
+        t2 = time.perf_counter()
+    finally:
+        _patched(old)
+    errs = {}
+    for kind, table in ref.items():
+        for name, value in table.items():
+            if name == 'ell':
+                continue
+            d = (got[kind][name].cpu() - value).abs()[:, 2:]
+            if name == 'te':
+                scale = torch.sqrt(table['tt'] * table['ee'])[:, 2:]
+                errs[f'{kind} te'] = (d / scale).max().item()
+            else:
+                errs[f'{kind} {name}'] = (d.amax(dim=-1) / value[:, 2:].abs().amax(dim=-1)).max().item()
+    print(f'CMB spectra, card vs CPU, {cut["rows"]} cosmologies at ellmax_cl={cut["ellmax"]}, lensing_margin='
+          f'{cut["extra"]["lensing_margin"]}, n_steps={cut["n_steps"]}, N_STEPS_T={cut["n_steps_t"]}: '
+          + ', '.join(f'{name} {err:.3e}' for name, err in errs.items())
+          + f' (bar {CL_RTOL:g}; TE against sqrt(TT EE)); card {t1 - t0:.1f} s, CPU {t2 - t1:.1f} s', flush=True)
+    check(all(err <= CL_RTOL for err in errs.values()), 'the CMB spectra on the card and the CPU disagree')
+    return launches
+
+
+def perturbation_table(card):
+    """Phase 19: DESI(engine='native').get_perturbations().table() at the
+    default k_output_values, on the card against the CPU."""
+    from cosmoprimo_tpu_torch.fiducial import DESI
+    out = {}
+    for device in (DEVICE, 'cpu'):
+        t0 = time.perf_counter()
+        out[device] = DESI(engine='native', device=device).get_perturbations().table()
+        out[device + ' s'] = time.perf_counter() - t0
+    errs = {}
+    for got, ref in zip(out[DEVICE], out['cpu']):
+        check(got.dtype.names == ref.dtype.names and got.shape == ref.shape, 'the Perturbations tables differ in layout')
+        for name in ref.dtype.names:
+            check(bool(np.isfinite(got[name]).all()), f'the Perturbations table has non-finite {name}')
+            err = np.max(np.abs(got[name] - ref[name])) / max(np.max(np.abs(ref[name])), 1e-300)
+            errs[name] = max(errs.get(name, 0.0), err)
+    worst = max(errs, key=errs.get)
+    print(f'Perturbations table, DESI, k = (0.01, 0.1, 1.0) h/Mpc (8192 + 4096 steps), {len(ref)} tau nodes: card vs '
+          f'CPU worst field {worst} {errs[worst]:.3e}, every field <= {max(errs.values()):.3e} (bar {SERIES_RTOL:g}); '
+          f'card {out[DEVICE + " s"]:.1f} s, CPU {out["cpu s"]:.1f} s on {card}', flush=True)
+    check(max(errs.values()) <= SERIES_RTOL, 'the Perturbations tables on the card and the CPU disagree')
+
+
+def emitting_graphs(rng, card):
+    """Phase 20: the emitting loops (the line-of-sight taps, the
+    perturbation series, the tensor loop) replayed from CUDA graphs against
+    the same loops run eagerly on the card, at a cut step budget."""
+    from cosmoprimo_tpu_torch import Cosmology
+    from cosmoprimo_tpu_torch.boltzmann import harmonic, perturbations as P, tensor
+    cut = EMIT_GRAPH
+    p = [torch.from_numpy(v).to(DEVICE) for v in cosmo_params(rng, cut['rows'])]
+    cosmo = Cosmology(omega_cdm=p[0], omega_b=p[1], h=p[2], n_s=p[3], logA=p[4], engine='native')
+    pp, th = cosmo.engine._perturbation_params(), cosmo.get_thermodynamics().table
+    k = torch.from_numpy(harmonic.coarse_k_grid(cut['kmax'])).to(DEVICE).expand(cut['rows'], -1).contiguous()
+    old = _patched([(tensor, 'N_STEPS_T', cut['n_steps_t'])])
+    out, walls = {}, {}
+    try:
+        for graphs in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[graphs] = (P.compute_los_sources(pp, th, k, n_steps=cut['n_steps'], graphs=graphs)['src'],
+                           P.compute_perturbation_series(pp, th, k, n_steps=cut['n_steps'], graphs=graphs)['series'],
+                           tensor.compute_tensor_sources(pp, th, k, graphs=graphs)['src'])
+            torch.cuda.synchronize()
+            walls[graphs] = time.perf_counter() - t0
+    finally:
+        _patched(old)
+    errs = [((g - e).abs().amax(dim=-1) / e.abs().amax(dim=-1).clamp(min=1e-300)).max().item()
+            for g, e in zip(out[True], out[False])]
+    print(f'emitting loops, CUDA graphs vs eager on the card, {cut["rows"]} cosmologies, {k.shape[-1]} k to '
+          f'{cut["kmax"]} /Mpc, n_steps={cut["n_steps"]}, N_STEPS_T={cut["n_steps_t"]}: line-of-sight sources '
+          f'{errs[0]:.3e}, perturbation series {errs[1]:.3e}, tensor sources {errs[2]:.3e} (bar {GRAPH_RTOL:g}); '
+          f'wall {walls[True]:.2f} s with graphs, {walls[False]:.2f} s eagerly on {card}', flush=True)
+    check(all(bool(torch.isfinite(t).all()) for t in out[False]), 'the eager emitting loops are not finite')
+    check(all(err <= GRAPH_RTOL for err in errs), 'the emitting loops replayed from graphs disagree with eager')
 
 
 def kernel_bound_ms(x, args):
@@ -976,6 +1170,11 @@ def main():
     launches += analytic_engines(fftlog_kernel, rng, card)
     batched_solve(rng, card)
     mock_redshifts(card)
+
+    # 18-20. the native CMB spectra, the Perturbations table, the emitting loops
+    launches += cmb_spectra(fftlog_kernel, rng, card)
+    perturbation_table(card)
+    emitting_graphs(rng, card)
 
     print(json.dumps({'kernels': [{
         'name': 'fftlog_core', 'route': 'cuda', 'source': 'cosmoprimo_tpu_torch/csrc/fftlog_core.cu',

@@ -1,5 +1,6 @@
 """The native Boltzmann solver (cosmoprimo_tpu/boltzmann/): recombination
-thermodynamics and linear perturbations, batched over cosmologies."""
+thermodynamics, linear perturbations and the CMB spectra (the line-of-sight
+projection, the lensing and the tensor modes), batched over cosmologies."""
 
 from .thermodynamics import ThermodynamicsResult, compute_thermodynamics
 

@@ -10,7 +10,10 @@ RK4 phases of static length), the stiff regimes are algebraic projections
 ``torch.where``, and the outputs at the requested redshifts are harvested
 inside the loops by per-step linear blending, as in the JAX package. The
 two phases run through :func:`~cosmoprimo_tpu_torch.ops.step_loop.step_loop`
-(CUDA graphs on the card).
+(CUDA graphs on the card); the same loop can emit rows of every step's end
+state instead (the line-of-sight source taps of the CMB spectra,
+:func:`compute_los_sources`, and the series of
+:func:`compute_perturbation_series`).
 
 Per-cosmology scalars of the tables (``tabs``) have shape (B, 1), so that
 they broadcast against the (B, nk) lanes. The factors that depend on k and
@@ -209,28 +212,40 @@ def build_tables(params, thermo, m_tab=None):
     return tabs
 
 
-def _fetch(tabs, eta, lanes=None):
+def _fetch(tabs, eta, lanes=None, rates=False):
     """The stacked tables at per-lane ``eta`` (..., B, nk): index arithmetic
     on the uniform ln(eta) grid, log-stored rows exponentiated back; the
     leading axes (grid points) are free. With ``lanes`` (a :class:`Lanes`),
     also a and the massive-neutrino factors at a(eta): eps, the moment
     weights W0 = w q^2 eps and W2 = w q^4 / eps, and I_rho = sum W0,
-    (..., ns, NQ, B, nk) and (..., B, nk)."""
+    (..., ns, NQ, B, nk) and (..., B, nk). With ``rates``, also 'rate', the
+    d/deta of each stacked quantity: the slope of the segment the fetch
+    picks, zero where the blend weight is clipped and half of it on the
+    clip's edge, as forward mode through the JAX package's fetch gives."""
     lead, (B, nk) = eta.shape[:-2], eta.shape[-2:]
     x = (torch.log(eta) - tabs['lneta0']) / tabs['dlneta']
     s = tabs['stack']
     Q = s.shape[0]
     i = torch.clamp(x.to(torch.int32), 0, s.shape[-1] - 2).to(torch.int64)
-    w = torch.clamp(x - i, 0.0, 1.0)
+    u = x - i
+    w = torch.clamp(u, 0.0, 1.0)
     i = i.movedim(-2, 0).reshape(B, -1).expand(Q, B, -1)
 
     def take(j):
         return torch.gather(s, 2, j).reshape((Q, B) + lead + (nk,)).movedim(1, -2)
 
-    vals = take(i) * (1.0 - w) + take(i + 1) * w
+    lo, hi = take(i), take(i + 1)
+    vals = lo * (1.0 - w) + hi * w
     out = {'lna': vals[0], 'w_nc': vals[10], 'dw_nc': vals[11], 'w_de': vals[12]}
     out.update(zip(_STACK_NAMES[1:10], torch.exp(vals[_LOG_ROWS])))
     out['wa_fld'], out['cs2_fld'], out['K'] = tabs['wa_fld'], tabs['cs2_fld'], tabs['K']
+    if rates:
+        inside = torch.where((u > 0.0) & (u < 1.0), 1.0, torch.where((u == 0.0) | (u == 1.0), 0.5, 0.0))
+        dw = inside / (eta * tabs['dlneta'])
+        dv = lo * -dw + hi * dw          # the JAX package's forward-mode arithmetic
+        rate = {'lna': dv[0], 'w_nc': dv[10], 'dw_nc': dv[11], 'w_de': dv[12]}
+        rate.update((name, out[name] * dv[j]) for j, name in enumerate(_STACK_NAMES[1:10], 1))
+        out['rate'] = rate
     if lanes is not None:
         a = out['a'] = torch.exp(out['lna'])
         eps = out['eps'] = torch.sqrt(lanes.q2 + (a[..., None, None, :, :] * lanes.am[:, None]) ** 2)
@@ -373,6 +388,15 @@ def _cum_density(dens, eta_m):
     return torch.cat([torch.zeros_like(dens[..., :1]), cumsum_blocked(seg)], dim=-1)
 
 
+def _grid_on(s, eta_mm, start, end, n):
+    """The n + 1 points (B, nk, n + 1) uniform in the cumulative step density
+    ``s`` (B, nk, M) from eta ``start`` to ``end`` (B, nk), on the master
+    grid ``eta_mm`` (B, 1, M)."""
+    s_ini, s_end = (_interp_lanes(e[..., None], eta_mm, s) for e in (start, end))
+    idx = torch.arange(n + 1, dtype=torch.float64, device=s.device) / n
+    return _interp_lanes(s_ini + (s_end - s_ini) * idx, s, eta_mm)
+
+
 def build_time_grids(tabs, k, n_steps_a=None, n_steps_b=None):
     """Per-lane integration grids (eta_A, eta_B, eta_ini): (B, nk, N + 1)
     for both phases and (B, nk). ``k`` (B, nk) in 1/Mpc.
@@ -398,14 +422,8 @@ def build_time_grids(tabs, k, n_steps_a=None, n_steps_b=None):
     eta_dec = interp(torch.full_like(eta0, np.log(1.0 / 901.0)), tabs['lna'], eta_m)   # eta(z = 900)
     eta_Aend = torch.clamp(torch.clamp(RSA_KETA / k, min=eta_dec), max=eta0)
     eta_mm = eta_m[:, None, :]
-
-    def grid(s, start, end, n):
-        s_ini, s_end = (_interp_lanes(e[..., None], eta_mm, s) for e in (start, end))
-        idx = torch.arange(n + 1, dtype=torch.float64, device=k.device) / n
-        return _interp_lanes(s_ini + (s_end - s_ini) * idx, s, eta_mm)
-
     # phase A ends, and phase B starts, exactly at eta_Aend (see Lanes.eta_rsa)
-    eta_A = torch.cat([grid(s, eta_ini, eta_Aend, n_steps_a)[..., :-1], eta_Aend[..., None]], dim=-1)
+    eta_A = torch.cat([_grid_on(s, eta_mm, eta_ini, eta_Aend, n_steps_a)[..., :-1], eta_Aend[..., None]], dim=-1)
     del s
 
     # phase B: ln-eta sampling plus the massive-neutrino acoustic phase
@@ -416,7 +434,7 @@ def build_time_grids(tabs, k, n_steps_a=None, n_steps_b=None):
     sB = _cum_density(densB, eta_m)
     del densB
     eta_end = (eta0 * (1.0 + 1e-9)).expand(eta_Aend.shape)
-    eta_B = torch.minimum(grid(sB, eta_Aend, eta_end, n_steps_b), (eta0 * (1.0 + 1e-9))[..., None])
+    eta_B = torch.minimum(_grid_on(sB, eta_mm, eta_Aend, eta_end, n_steps_b), (eta0 * (1.0 + 1e-9))[..., None])
     return eta_A, torch.cat([eta_Aend[..., None], eta_B[..., 1:]], dim=-1), eta_ini
 
 
@@ -462,15 +480,20 @@ def _wsum(w, x):
     return torch.sum(w * x, dim=(0, 1))
 
 
+def _stress(y, lanes, c):
+    """The anisotropic stress of the metric constraint, linear in the state
+    with the coefficients ``c`` (or their rates, see :func:`_psi_rates_a`)."""
+    return c['sg'] * y[_I_FG] + c['su'] * y[_I_UR + 2] + _wsum(c['S2w'], _psi_nc(y, lanes)[:, :, 2])
+
+
 def _metric_parts(y, lanes, c):
     """The stress and the momentum density of the metric constraints: what
     :func:`_metric` needs besides phi (the projections reuse them when
     only phi changed)."""
     psi_nc = _psi_nc(y, lanes)
-    stress = c['sg'] * y[_I_FG] + c['su'] * y[_I_UR + 2] + _wsum(c['S2w'], psi_nc[:, :, 2])
     theta = (c['fc'] * y[_I_TC] + c['fb'] * y[_I_TB] + c['thg'] * y[_I_TG] + _wsum(c['T1w'], psi_nc[:, :, 1])
              + c['thde'] * y[_I_TDE] + c['thu'] * y[_I_UR + 1])
-    return stress, theta
+    return _stress(y, lanes, c), theta
 
 
 def _metric(phi, parts, c):
@@ -712,49 +735,255 @@ def _ncdm_handoff(yA, eta_Aend, tabs, lanes):
 def _at(c, i):
     """The coefficients of grid point ``i`` (the leading axis of every
     per-point entry; per-cosmology entries have none)."""
-    return {name: v[i] if v.dim() > 2 else v for name, v in c.items()}
+    return {name: _at(v, i) if isinstance(v, dict) else v[i] if v.dim() > 2 else v for name, v in c.items()}
 
 
-def _rk4_loop(deriv, coefs, project, y0, eta_grid, harvest_eta, tabs, lanes, rows, graphs):
+def _rk4_loop(deriv, coefs, project, y0, eta_grid, tabs, lanes, graphs, harvest=None, emit=None, rates=None):
     """Fixed-step RK4 over the per-lane grids ``eta_grid`` (N + 1, B, nk),
     then ``project``. The coefficients ``coefs`` at the steps' ends and
-    midpoints are made once per chunk of steps, vectorized. Harvests the
-    linear blend of the state rows ``rows`` at each ``harvest_eta``
-    (B, n_z) inside the step that holds it (half open: e0 <= eta < e1).
-    Returns the final state and (n_z, len(rows), B, nk)."""
-    rows = torch.as_tensor(rows, device=y0.device)
-    h = harvest_eta.T[:, :, None]                         # (n_z, B, 1)
+    midpoints are made once per chunk of steps, vectorized, and with
+    ``rates`` (a function of them) also 'rate', their d/deta at a fixed
+    state that ``emit`` reads. The carry holds the state and its derivative
+    at the step's start, which is the next step's first RK4 stage.
+
+    ``harvest``: None or (harvest_eta (B, n_z), rows): the linear blend of
+    the state rows ``rows`` at each harvest point, inside the step that holds
+    it (half open: e0 <= eta < e1). ``emit``: None or a function
+    (y1, ydot1, lanes, c1) -> (n_emit, B, nk) of each step's end state, its
+    derivative and the coefficients there (the line-of-sight source taps).
+    Returns the final state, the harvest (n_z, len(rows), B, nk) or None and
+    the emitted rows (N, n_emit, B, nk) or None."""
+    fetch_lanes = lanes if isinstance(lanes, Lanes) else None     # the massive neutrinos' factors
+    if harvest is not None:
+        harvest_eta, rows = harvest
+        rows = torch.as_tensor(rows, device=y0.device)
+        h = harvest_eta.T[:, :, None]                     # (n_z, B, 1)
 
     def prepare(cols):
         e = cols[0]
         em = 0.5 * (e[:-1] + e[1:])
         pts = torch.cat([torch.stack([e[:-1], em], dim=1).flatten(0, 1), e[-1:]])   # e_0, m_0, e_1, ...
-        c = coefs(_fetch(tabs, pts, lanes), lanes, pts)
-        e0, e1 = e[:-1, None], e[1:, None]
+        c = coefs(_fetch(tabs, pts, fetch_lanes, rates=rates is not None), lanes, pts)
+        if rates is not None:
+            c['rate'] = rates(c, lanes)
+        e0, e1 = e[:-1], e[1:]
         d = e1 - e0
-        # the harvest: the blend weight where the step holds a harvest point, else 0
-        hit = (e0 <= h) & (e1 > h)
-        w = torch.where(hit, torch.clamp((h - e0) / torch.where(d > 0, d, 1.0), 0.0, 1.0), 0.0)[:, :, None]
-        d = d[:, 0]
         drag = _drag_coefs(_at(c, slice(1, None, 2)), d) if coefs is _coefs_a else (d, d)
-        return c, d, 0.5 * d, d / 6.0, hit[:, :, None], w, drag
+        data = (c, d, 0.5 * d, d / 6.0, drag)
+        if harvest is not None:
+            # the blend weight where the step holds a harvest point, else 0
+            hit = (e0[:, None] <= h) & (e1[:, None] > h)
+            dd = d[:, None]
+            w = torch.where(hit, torch.clamp((h - e0[:, None]) / torch.where(dd > 0, dd, 1.0), 0.0, 1.0), 0.0)
+            data += (hit[:, :, None], w[:, :, None])
+        return data
 
     def step(carry, data, j):
-        y, out = carry
-        c, d, hd, d6, hit, w, drag = (v[j] if isinstance(v, torch.Tensor) else v for v in data)
-        c0, cm, c1 = _at(c, 2 * j), _at(c, 2 * j + 1), _at(c, 2 * j + 2)
-        k1 = deriv(y, lanes, c0)
-        k2 = deriv(y + hd * k1, lanes, cm)
+        y, ydot = carry[:2]
+        c, d, hd, d6, drag = data[:5]
+        d, hd, d6 = d[j], hd[j], d6[j]
+        cm, c1 = _at(c, 2 * j + 1), _at(c, 2 * j + 2)
+        k2 = deriv(y + hd * ydot, lanes, cm)
         k3 = deriv(y + hd * k2, lanes, cm)
         k4 = deriv(y + d * k3, lanes, c1)
-        y1 = project(y, y + d6 * torch.add(k1, k2, alpha=2.0).add_(k3, alpha=2.0).add_(k4), lanes,
+        y1 = project(y, y + d6 * torch.add(ydot, k2, alpha=2.0).add_(k3, alpha=2.0).add_(k4), lanes,
                      (drag[0][j], drag[1][j]), cm, c1)
-        ys = y.index_select(0, rows)
-        return (y1, out + torch.where(hit, ys + w * (y1.index_select(0, rows) - ys), 0.0)), ()
+        ydot1 = deriv(y1, lanes, c1)
+        new = (y1, ydot1)
+        if harvest is not None:
+            hit, w = data[5][j], data[6][j]
+            ys = y.index_select(0, rows)
+            new += (carry[2] + torch.where(hit, ys + w * (y1.index_select(0, rows) - ys), 0.0),)
+        return new, (() if emit is None else (emit(y1, ydot1, lanes, c1),))
 
-    out0 = y0.new_zeros((h.shape[0], rows.numel()) + y0.shape[1:])
-    (y, out), _ = step_loop(step, (y0, out0), (eta_grid,), prepare=prepare, graphs=graphs)
-    return y, out
+    start = eta_grid[:1]
+    carry = (y0, deriv(y0, lanes, _at(coefs(_fetch(tabs, start, fetch_lanes), lanes, start), 0)))
+    if harvest is not None:
+        carry += (y0.new_zeros((h.shape[0], rows.numel()) + y0.shape[1:]),)
+    carry, emitted = step_loop(step, carry, (eta_grid,), prepare=prepare, graphs=graphs)
+    return carry[0], (carry[2] if harvest is not None else None), (emitted[0] if emit is not None else None)
+
+
+def _psi_rates_a(c, lanes):
+    """d/deta at a fixed state of the coefficients of psi = phi - mpsi stress
+    (phase A), from the fetch's rates: 'mpsi', and those of the stress,
+    'sg', 'su' and 'S2w' (the massive neutrinos' through a(eta))."""
+    r = c['rate']
+    k2 = lanes.k2
+    tca, rsa = c['tca'], c['ur_rsa']
+    I_rho = c['I_rho'][..., None, None, :, :]
+    eps, W2 = c['eps'], c['W2']
+    deps = (c['a'][..., None, None, :, :] * lanes.am[:, None]) ** 2 * r['lna'][..., None, None, :, :] / eps
+    dI = torch.sum(lanes.w2 * deps, dim=(-4, -3))[..., None, None, :, :]
+    fnc5, dfnc5 = c['fnc'][..., None, None, :, :], r['fnc'][..., None, None, :, :]
+    return {'mpsi': 4.5 * (2.0 * c['Hc'] * r['Hc']) / (k2 * lanes.s2sq),
+            'sg': torch.where(tca, 0.0, (2.0 / 3.0) * r['fg']), 'su': torch.where(rsa, 0.0, (2.0 / 3.0) * r['fur']),
+            'S2w': (2.0 / 3.0) * ((dfnc5 * W2 - fnc5 * W2 * deps / eps) / I_rho - fnc5 * W2 * dI / I_rho ** 2)}
+
+
+def _emit_los_a(y, ydot, lanes, c):
+    """The five line-of-sight source rows of a phase-A state (see
+    :func:`compute_los_sources`). psi' is exact: the derivative of psi along
+    the state's derivative ``ydot`` plus its explicit eta-dependence through
+    the coefficients (:func:`_psi_rates_a`), as the JAX package's forward mode
+    through the metric constraint."""
+    parts = _metric_parts(y, lanes, c)
+    psi, phip = _metric(y[_I_PHI], parts, c)
+    r = c['rate']
+    dpsi = ((ydot[_I_PHI] - c['mpsi'] * _stress(ydot, lanes, c))          # along the state's derivative
+            - (r['mpsi'] * parts[0] + c['mpsi'] * _stress(y, lanes, r)))  # through the coefficients
+    # Pi in temperature units: the hierarchy stores brightness moments F_l = 4 Theta_l
+    Pi = 0.25 * (y[_I_FG] + y[_I_GP] + y[_I_GP + 2])
+    return torch.stack([0.25 * y[_I_DG] + psi + 0.25 * Pi, y[_I_TB] / lanes.k, Pi, phip + dpsi,
+                        0.5 * (y[_I_PHI] + psi)])
+
+
+def _psi_rates_b(c, lanes):
+    """d/deta of b_sn in the streaming phase's psi = phi - b_sn sigma_ncdm."""
+    r = c['rate']
+    w, fnc = c['w_nc'], c['fnc']
+    G2 = c['Hc'] ** 2 + c['K']
+    return {'b_sn': 4.5 / (lanes.k2 * lanes.s2sq) * ((2.0 * c['Hc'] * r['Hc']) * fnc * (1.0 + w)
+                                                      + G2 * r['fnc'] * (1.0 + w) + G2 * fnc * r['w_nc'])}
+
+
+def _emit_los_b(y, ydot, lanes, c):
+    """The source rows of a streaming-phase state: Theta_0 + psi = 0 and
+    Pi = 0 there; psi = phi - b_sn sigma_ncdm, psi' exact as in phase A."""
+    psi = y[0] - c['b_sn'] * y[7]
+    dpsi = ydot[0] - c['b_sn'] * ydot[7] - c['rate']['b_sn'] * y[7]
+    zero = torch.zeros_like(psi)
+    return torch.stack([zero, y[4] / lanes.k, zero, ydot[0] + dpsi, 0.5 * (y[0] + psi)])
+
+
+PERTURBATION_NAMES = ('delta_g', 'theta_g', 'shear_g', 'delta_b', 'theta_b',
+                      'delta_cdm', 'theta_cdm', 'delta_ur', 'theta_ur',
+                      'delta_ncdm', 'theta_ncdm', 'delta_fld', 'theta_fld',
+                      'phi', 'psi')
+
+
+def _emit_series_a(y, ydot, lanes, c):
+    """The :data:`PERTURBATION_NAMES` rows of a phase-A state."""
+    parts = _metric_parts(y, lanes, c)
+    psi, phip = _metric(y[_I_PHI], parts, c)
+    tur = torch.where(c['ur_rsa'], 3.0 * phip, 0.75 * lanes.k * y[_I_UR + 1])
+    psi_nc = _psi_nc(y, lanes)
+    I_rho = c['I_rho']
+    dn = _wsum(c['W0'], psi_nc[:, :, 0]) / I_rho
+    opw_th_k = _wsum(lanes.w2q, psi_nc[:, :, 1]) / I_rho
+    return torch.stack([y[_I_DG], y[_I_TG], 0.5 * y[_I_FG], y[_I_DB], y[_I_TB], y[_I_DC], y[_I_TC], y[_I_UR], tur,
+                        dn, lanes.k * opw_th_k / (1.0 + c['w_nc']), y[_I_DDE], y[_I_TDE], y[_I_PHI], psi])
+
+
+def _emit_series_b(y, ydot, lanes, c):
+    """The :data:`PERTURBATION_NAMES` rows of a streaming-phase state: the
+    radiation's algebraic values (delta = -4 psi, theta = 3 phi')."""
+    psi = y[0] - c['b_sn'] * y[7]
+    tg = 3.0 * ydot[0]
+    return torch.stack([-4.0 * psi, tg, torch.zeros_like(psi), y[3], y[4], y[1], y[2], -4.0 * psi, tg, y[5], y[6],
+                        y[8], y[9], y[0], psi])
+
+
+def _los_z_nodes(n_rec=512, n_mid=192, n_reio=128, n_late=192):
+    """The static redshift template of the line-of-sight source grid: dense
+    through recombination (z in [1690, 500]), logarithmic through the matter
+    era and reionization, uniform in ln(1+z) at late times (numpy)."""
+    z_rec = np.linspace(1690.0, 500.0, n_rec, endpoint=False)
+    z_mid = np.geomspace(500.0, 30.0, n_mid, endpoint=False)
+    z_reio = np.geomspace(30.0, 4.0, n_reio, endpoint=False)
+    z_late = np.expm1(np.linspace(np.log1p(4.0), 0.0, n_late))
+    return np.concatenate([z_rec, z_mid, z_reio, z_late])
+
+
+def _tau_nodes(tabs, z_nodes):
+    """Conformal times (B, n) of the redshift template, just inside eta0."""
+    lna_n = torch.from_numpy(-np.log1p(np.asarray(z_nodes, dtype=np.float64))).to(tabs['lna'].device)
+    tau_h = torch.exp(interp(lna_n, tabs['lna'], tabs['lneta']))
+    return torch.minimum(tau_h, tabs['eta0'] * (1.0 - 1e-9))
+
+
+def _onto_tau(tau_h, grids, series):
+    """Each lane's emitted rows from its own step grids onto the shared
+    conformal times ``tau_h`` (B, n): ``grids`` the phases' grids
+    (N + 1, B, nk) and ``series`` their emitted rows (N, R, B, nk), one
+    phase, or two: the first taken before the end of its grid and the second
+    after it, each by ``jnp.interp`` (clamped at both ends). Returns
+    (B, nk, R, n)."""
+    B, nk = grids[0].shape[1:]
+    x = tau_h[:, None, :].expand(B, nk, tau_h.shape[-1])
+    out = []
+    for grid, rows in zip(grids, series):
+        xp = grid[1:].permute(1, 2, 0).contiguous()
+        f = rows.permute(1, 2, 3, 0)
+        out.append(torch.stack([_interp_lanes(x, xp, f[r]) for r in range(f.shape[0])], dim=2))
+    if len(out) == 1:
+        return out[0]
+    return torch.where((x < grids[0][-1][..., None])[:, :, None, :], out[0], out[1])
+
+
+def _emitting_run(params, thermo, k, n_steps, graphs, emitters, rates=(None, None)):
+    """Both phases from the adiabatic start, each step emitting through
+    ``emitters`` (phase A's and phase B's, which read ``rates``): the setup
+    and the emitted rows of each phase."""
+    run = _setup(params, thermo, k, None, n_steps)
+    tabs, lanes = run['tabs'], run['lanes']
+    yA, _, srcA = _rk4_loop(deriv_full, _coefs_a, _project_a, run['y0'], run['eta_A'], tabs, lanes, graphs,
+                            emit=emitters[0], rates=rates[0])
+    yB0 = _ncdm_handoff(yA, run['eta_A'][-1], tabs, lanes)
+    _, _, srcB = _rk4_loop(deriv_rsa, _coefs_b, _project_b, yB0, run['eta_B'], tabs, lanes, graphs,
+                           emit=emitters[1], rates=rates[1])
+    return run, srcA, srcB
+
+
+def compute_los_sources(params, thermo, k, n_steps=None, graphs=True):
+    """Line-of-sight CMB sources of a batch on a common conformal-time grid
+    per cosmology (Seljak & Zaldarriaga 1996). The two-phase integration of
+    :func:`integrate_perturbations` taps five rows at every step, then each
+    lane's series goes from its own step grid onto the grid ``tau`` made from
+    the redshift template :func:`_los_z_nodes`:
+
+    0. mono = Theta_0 + psi + Pi/4 (multiplies g j_l), with Pi = Theta_2 +
+       (G_0 + G_2)/4 = (F_g2 + G_0 + G_2)/4 in temperature units;
+    1. dopp = theta_b / k (multiplies g j_l');
+    2. pol = Pi ((3/4) g Pi multiplies j_l''; the E source is (3/4) g Pi j_l/x^2);
+    3. isw = phi' + psi' (multiplies e^-kappa j_l);
+    4. weyl = (phi + psi) / 2 (the lensing-potential source).
+
+    ``k`` (B, nk) in 1/Mpc; ``params``, ``thermo`` as :func:`build_tables`;
+    ``n_steps`` and ``graphs`` as :func:`integrate_perturbations`. Returns a
+    dict: 'tau' (B, n_tau), 'src' (B, nk, 5, n_tau) raw sources (visibility
+    not applied), 'g' and 'emk' (= e^-kappa) (B, n_tau), 'eta0' and
+    'tau_star' (the visibility peak's, from thermo.z_star) (B, 1), and 'k'."""
+    run, srcA, srcB = _emitting_run(params, thermo, k, n_steps, graphs, (_emit_los_a, _emit_los_b),
+                                     (_psi_rates_a, _psi_rates_b))
+    tabs = run['tabs']
+    tau_h = _tau_nodes(tabs, _los_z_nodes())
+    src = _onto_tau(tau_h, (run['eta_A'], run['eta_B']), (srcA, srcB))
+    c_h = _fetch(tabs, tau_h)
+    B = tau_h.shape[0]
+    lna_th = torch.from_numpy(_thermo.LNA_GRID).to(tau_h.device)
+    kappa = interp(c_h['lna'], lna_th, thermo.tau.reshape(B, -1))
+    emk = torch.exp(-kappa)
+    tau_star = torch.exp(interp(-torch.log1p(thermo.z_star.reshape(B, 1)), tabs['lna'], tabs['lneta']))
+    return {'tau': tau_h, 'src': src, 'g': c_h['kp'] * emk, 'emk': emk, 'eta0': tabs['eta0'], 'tau_star': tau_star,
+            'k': k}
+
+
+def compute_perturbation_series(params, thermo, k, n_steps=None, graphs=True):
+    """Newtonian-gauge perturbation series of each mode of a batch, from the
+    per-lane step grids onto a common conformal-time grid per cosmology (the
+    per-k table CLASS's ``get_perturbations`` gives). Arguments as
+    :func:`compute_los_sources`. Returns a dict: 'tau' and 'a' (B, n_tau),
+    'k' (B, nk), 'series' (B, nk, len(PERTURBATION_NAMES), n_tau) ordered
+    as :data:`PERTURBATION_NAMES` (MB95 conventions, comoving curvature
+    R = 1; in the streaming phase the radiation's algebraic values), and
+    'names'."""
+    run, srcA, srcB = _emitting_run(params, thermo, k, n_steps, graphs, (_emit_series_a, _emit_series_b))
+    tabs = run['tabs']
+    tau_h = _tau_nodes(tabs, _los_z_nodes())
+    series = _onto_tau(tau_h, (run['eta_A'], run['eta_B']), (srcA, srcB))
+    a_h = torch.exp(interp(torch.log(tau_h), tabs['lneta'], tabs['lna']))
+    return {'tau': tau_h, 'a': a_h, 'k': k, 'series': series, 'names': PERTURBATION_NAMES}
 
 
 def _rows_a(ns):
@@ -766,30 +995,34 @@ def _rows_a(ns):
 
 def _setup(params, thermo, k, z_outputs, n_steps):
     """Everything before the loops: the tables, the lanes, the per-lane
-    grids (grid axis first), the initial state and the harvest points."""
+    grids (grid axis first), the initial state and, for ``z_outputs`` not
+    None, the harvest points."""
     na, nb, mt = n_steps if n_steps is not None else (None, None, None)
     tabs = build_tables(params, thermo, m_tab=mt)
     lanes = Lanes(tabs, k)
     eta_A, eta_B, eta_ini = build_time_grids(tabs, k, n_steps_a=na, n_steps_b=nb)
-    z = torch.as_tensor(np.asarray(z_outputs, dtype=np.float64), device=k.device)
-    eta_t = torch.exp(interp(-torch.log1p(z), tabs['lna'], tabs['lneta']))   # (B, n_z)
-    # z = 0 maps to eta0 exactly; nudge inside the final half-open step
-    eta_t = torch.minimum(eta_t, tabs['eta0'] * (1.0 - 1e-10))
-    return dict(tabs=tabs, lanes=lanes, k=k, z=z, eta_t=eta_t, y0=adiabatic_ics(tabs, lanes, eta_ini),
-                eta_A=eta_A.permute(2, 0, 1).contiguous(), eta_B=eta_B.permute(2, 0, 1).contiguous())
+    run = dict(tabs=tabs, lanes=lanes, k=k, y0=adiabatic_ics(tabs, lanes, eta_ini),
+               eta_A=eta_A.permute(2, 0, 1).contiguous(), eta_B=eta_B.permute(2, 0, 1).contiguous())
+    if z_outputs is not None:
+        z = torch.as_tensor(np.asarray(z_outputs, dtype=np.float64), device=k.device)
+        eta_t = torch.exp(interp(-torch.log1p(z), tabs['lna'], tabs['lneta']))   # (B, n_z)
+        # z = 0 maps to eta0 exactly; nudge inside the final half-open step
+        run.update(z=z, eta_t=torch.minimum(eta_t, tabs['eta0'] * (1.0 - 1e-10)))
+    return run
 
 
 def _phase_a(run, graphs):
     """The full-hierarchy phase: its end state and harvest."""
-    return _rk4_loop(deriv_full, _coefs_a, _project_a, run['y0'], run['eta_A'], run['eta_t'], run['tabs'],
-                     run['lanes'], _rows_a(run['lanes'].ns), graphs)
+    yA, outA, _ = _rk4_loop(deriv_full, _coefs_a, _project_a, run['y0'], run['eta_A'], run['tabs'], run['lanes'],
+                            graphs, harvest=(run['eta_t'], _rows_a(run['lanes'].ns)))
+    return yA, outA
 
 
 def _phase_b(run, yA, graphs):
     """The streaming phase from the end of phase A: its harvest."""
     yB0 = _ncdm_handoff(yA, run['eta_A'][-1], run['tabs'], run['lanes'])
-    return _rk4_loop(deriv_rsa, _coefs_b, _project_b, yB0, run['eta_B'], run['eta_t'], run['tabs'], run['lanes'],
-                     list(range(8)), graphs)[1]
+    return _rk4_loop(deriv_rsa, _coefs_b, _project_b, yB0, run['eta_B'], run['tabs'], run['lanes'], graphs,
+                     harvest=(run['eta_t'], list(range(8))))[1]
 
 
 def _assemble(run, outA, outB):

@@ -53,15 +53,27 @@ def kernel_tophat2(x):
     return torch.where(x < 0.1, lowx, highx) ** 2
 
 
+# the least distance [dex] of the outer pad knot from the table's edge knot
+_PAD_STEP = 1e-3
+
+
 def _pad_log(k, pk, extrap_kmin=_default_extrap_kmin, extrap_kmax=_default_extrap_kmax):
     """Pad (log10 k, log10 pk) with two points per side continuing the edge
-    power law out to the extrapolation range. ``k``: (nk,) tensor; ``pk``:
-    (nk, ...), knots first. Non-positive pk values are floored at 1e-250,
-    since one NaN knot would poison the whole (global) spline solve."""
+    power law out to the extrapolation range, the outer one at least
+    _PAD_STEP dex beyond the edge knot. ``k``: (nk,) tensor; ``pk``: (nk, ...),
+    knots first. Non-positive pk values are floored at 1e-250, since one NaN
+    knot would poison the whole (global) spline solve.
+
+    The JAX package puts the outer pad knot 1e-9 (relative) beyond the edge
+    where the table reaches the extrapolation bound, so its pad knots lie
+    4e-10 dex from the edge and the spline divides ulp-level differences of
+    log10 P by that gap: rounding moves P(k) in the last cell by ~1e-7. The
+    step keeps the pads resolvable; it changes the spline only where a table
+    ends within _PAD_STEP of its bound (tests/test_torch_interpolator_pad.py)."""
     logk = torch.log10(k)
     logpk = torch.log10(torch.clamp(pk, min=1e-250))
-    lo = torch.log10(torch.clamp(k[:1] * (1 - 1e-9), max=extrap_kmin))[0]
-    hi = torch.log10(torch.clamp(k[-1:] * (1 + 1e-9), min=extrap_kmax))[0]
+    lo = torch.clamp(logk[0] - _PAD_STEP, max=float(np.log10(float(extrap_kmin))))
+    hi = torch.clamp(logk[-1] + _PAD_STEP, min=float(np.log10(float(extrap_kmax))))
 
     slope_hi = (logpk[-1] - logpk[-2]) / (logk[-1] - logk[-2])
     pad_hi_k = torch.stack([logk[-1] * 0.1 + hi * 0.9, hi])

@@ -4,9 +4,9 @@ linear perturbations (boltzmann/perturbations.py) computed on the card, with
 no external Boltzmann code.
 
 Sections: Background (the default one), Thermodynamics, Primordial (the
-power law with runnings), Transfer and Fourier. Harmonic and Perturbations
-(the line-of-sight CMB spectra and the per-k source series) are not ported
-yet and raise.
+power law with runnings), Perturbations (the per-k Newtonian-gauge series),
+Transfer, Harmonic (the line-of-sight CMB spectra, lensed by the
+correlation-function method, with the tensor modes when r > 0) and Fourier.
 """
 
 import numpy as np
@@ -14,7 +14,10 @@ import torch
 
 from .. import constants
 from ..boltzmann import compute_thermodynamics
-from ..boltzmann.perturbations import linear_pk, steps_for_kmax
+from ..boltzmann.harmonic import _curvature, compute_cls, shared_kmin
+from ..boltzmann.lensing import lensed_cls
+from ..boltzmann.perturbations import compute_perturbation_series, linear_pk, steps_for_kmax
+from ..boltzmann.tensor import compute_tensor_cls
 from ..cosmology import BaseEngine, BaseSection, CosmologyInputError, _compute_rs_cosmomc, register_engine
 from ..cosmology import DefaultBackground as Background  # noqa: F401
 from ..interpolator import PowerSpectrumInterpolator2D
@@ -23,8 +26,6 @@ from .eisenstein_hu import Primordial  # noqa: F401  (the power law with running
 
 DEFAULT_Z_PK = (0.0, 0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 3.0, 5.0, 10.0, 20.0, 49.0)
 
-_SLICE_5B = 'is not ported yet (ROADMAP.md, queue 1, slice 5b)'
-
 
 @register_engine
 class NativeEngine(BaseEngine):
@@ -32,7 +33,10 @@ class NativeEngine(BaseEngine):
     Calculation knobs via ``extra_params``: ``nk_pk`` (default 256
     log-spaced k in [1e-4, kmax_pk] h/Mpc) and ``n_steps_pk`` (the static
     (n_steps_a, n_steps_b, m_tab) budget; default by kmax_pk,
-    :func:`~cosmoprimo_tpu_torch.boltzmann.perturbations.steps_for_kmax`)."""
+    :func:`~cosmoprimo_tpu_torch.boltzmann.perturbations.steps_for_kmax`);
+    for the CMB spectra ``lensing_margin`` (default 400), ``kmax_cl``,
+    ``kmax_pp`` and ``ellmax_tensor`` (default 600); for the Perturbations
+    section ``k_output_values`` (h/Mpc, default (0.01, 0.1, 1.0))."""
 
     name = 'native'
 
@@ -40,6 +44,7 @@ class NativeEngine(BaseEngine):
         super().__init__(cosmo, **extra_params)
         self._A_s = self._get_A_s_fid()
         self._pk_tables = None
+        self._unl_cache = self._lens_cache = None
 
     def _perturbation_params(self):
         """The solver's parameters, each a flat (B,) tensor (``m_ncdm``
@@ -99,6 +104,48 @@ class NativeEngine(BaseEngine):
                          if name not in ('k', 'z')}
             self._pk_tables = (k, z, out['pk_m'].reshape(shape), out['pk_cb'].reshape(shape), transfers)
         return self._pk_tables
+
+    def unl_tables(self, lmax):
+        """The unlensed CMB spectra (B, L + 1) of the flattened batch, to
+        L = ``lmax`` + ``lensing_margin`` (extra_params, default 400), made
+        once and cached, so that a later lensed_cl at the same ``lmax``
+        reuses them (the margin keeps the lensing remapping unbiased at the
+        output's edge). When any row has r > 0 the native tensor spectra
+        (boltzmann/tensor.py) are added to tt, ee and te and give the BB, up
+        to ``ellmax_tensor`` (extra_params, default 600); P_T is proportional
+        to r, so rows with r = 0 get exactly zero."""
+        margin = int(self._extra_params.get('lensing_margin', 400))
+        if self._unl_cache is None or self._unl_cache[0] < lmax + margin:
+            params = self._perturbation_params()
+            shared_kmin(_curvature(params))   # a batch that needs several k grids raises before any work
+            th = self.get_section('thermodynamics').table
+            # kmax_cl widens the k support beyond the TT/EE heuristic (the
+            # lensing-potential kernel peaks at chi ~ 3400 Mpc)
+            unl = compute_cls(params, th, lmax=lmax + margin, kmax=self._extra_params.get('kmax_cl', None),
+                              kmax_pp=self._extra_params.get('kmax_pp', None))
+            r = self['r'].reshape(-1)
+            if bool(torch.any(r > 0.0)):
+                lmax_t = min(lmax + margin, int(self._extra_params.get('ellmax_tensor', 600)))
+                params.update(r=r * torch.ones_like(params['h']), n_t=self['n_t'].reshape(-1) * torch.ones_like(r),
+                              alpha_t=self['alpha_t'].reshape(-1) * torch.ones_like(r))
+                ten = compute_tensor_cls(params, th, lmax=lmax_t)
+                for name in ('tt', 'ee', 'te', 'bb'):
+                    unl[name] = unl[name] + torch.nn.functional.pad(ten[name], (0, lmax + margin - lmax_t))
+            self._unl_cache = (lmax + margin, unl)
+        return self._unl_cache[1]
+
+    def lensed_tables(self, lmax):
+        """The lensed CMB spectra (B, lmax + 1), made from :meth:`unl_tables`
+        when a lensed spectrum is asked for, and cached."""
+        if self._lens_cache is None or self._lens_cache[0] < lmax:
+            unl = self.unl_tables(lmax)
+            self._lens_cache = (lmax, lensed_cls(unl['tt'], unl['ee'], unl['bb'], unl['te'], unl['pp'], lmax=lmax))
+        return self._lens_cache[1]
+
+    def cl_tables(self, lmax):
+        """(unlensed, lensed) spectra up to ``lmax``: :meth:`unl_tables` and
+        :meth:`lensed_tables`."""
+        return self.unl_tables(lmax), self.lensed_tables(lmax)
 
 
 class Thermodynamics(BaseSection):
@@ -210,17 +257,102 @@ class Transfer(BaseSection):
 
 
 class Perturbations(BaseSection):
-    """The per-k Newtonian-gauge source series: not ported yet."""
+    """The native Newtonian-gauge perturbation series (CLASS's
+    ``get_perturbations`` surface), at the k of ``k_output_values``
+    (extra_params, h/Mpc, a scalar or a sequence; default (0.01, 0.1, 1.0))."""
 
-    def __init__(self, engine):
-        raise NotImplementedError(f'The native Perturbations section {_SLICE_5B}')
+    def table(self):
+        """For one cosmology (batch shape ()): a list of structured arrays,
+        one per k of ``k_output_values``, with the fields 'tau [Mpc]', 'a'
+        and the MB95 Newtonian-gauge perturbations of
+        :data:`~cosmoprimo_tpu_torch.boltzmann.perturbations.PERTURBATION_NAMES`
+        (delta, theta, shear of each species, phi, psi), normalized to the
+        comoving curvature R = 1. For a batch: a list of such lists, one per
+        cosmology in the batch's flattened (C) order, since each has its own
+        conformal-time grid."""
+        engine = self.engine
+        k_h = np.atleast_1d(np.asarray(engine._extra_params.get('k_output_values', (0.01, 0.1, 1.0)),
+                                       dtype=np.float64))
+        params = engine._perturbation_params()
+        k = torch.from_numpy(k_h).to(self.device) * params['h'][:, None]
+        out = compute_perturbation_series(params, engine.get_section('thermodynamics').table, k,
+                                          n_steps=steps_for_kmax(k_h.max()))
+        tau, a, series = (out[name].cpu().numpy() for name in ('tau', 'a', 'series'))
+        dtype = [('tau [Mpc]', np.float64), ('a', np.float64)] + [(name, np.float64) for name in out['names']]
+        tables = []
+        for b in range(tau.shape[0]):
+            rows = []
+            for ik in range(k_h.size):
+                arr = np.empty(tau.shape[-1], dtype=dtype)
+                arr['tau [Mpc]'], arr['a'] = tau[b], a[b]
+                for i, name in enumerate(out['names']):
+                    arr[name] = series[b, ik, i]
+                rows.append(arr)
+            tables.append(rows)
+        return tables[0] if engine.batch_shape == () else tables
+
+
+class cl_table(dict):
+    """Dict-of-arrays Cl container mimicking a structured array (keys 'ell',
+    'tt', 'ee', ...): a string indexes a key, anything else indexes every
+    entry (cosmoprimo_tpu/emulators/emulated.py's)."""
+
+    def __getitem__(self, name):
+        if isinstance(name, str):
+            return super().__getitem__(name)
+        return self.__class__({key: self[key][name] for key in self})
+
+    @property
+    def size(self):
+        return next((value.size for value in self.values()), 0)
 
 
 class Harmonic(BaseSection):
-    """The native CMB spectra: not ported yet."""
+    """Natively integrated CMB angular power spectra: ``unlensed_cl``,
+    ``lensed_cl`` and ``lens_potential_cl`` return raw dimensionless C_l
+    tables (batch shape + (ellmax + 1,)), a negative ``ellmax`` counted back
+    from the ``ellmax_cl`` cosmology parameter, rescaled by the sigma8 ratio
+    squared. The spectra come from the line-of-sight projection
+    (boltzmann/harmonic.py), the correlation-function lensing
+    (boltzmann/lensing.py) and, when r > 0, the tensor modes
+    (boltzmann/tensor.py). Curved models are served for |Omega_k| <= 0.12
+    (the geodesic radial projection's window) on every row."""
 
     def __init__(self, engine):
-        raise NotImplementedError(f'The native Harmonic section {_SLICE_5B}')
+        super().__init__(engine)
+        if bool(torch.any(torch.abs(engine['Omega_k']) > 0.12)):
+            raise CosmologyInputError(
+                'native CMB Cls support |Omega_k| <= 0.12: the hyperspherical radial functions are served by the '
+                'geodesic projection j_l(q S_K(chi)), whose O(K/q^2) error is certified only in that window.')
+        self._rsigma8 = engine._rescale_sigma8()
+        self.ellmax_cl = engine['ellmax_cl']
+
+    def _resolve_ellmax(self, ellmax):
+        if ellmax < 0:
+            ellmax = self.ellmax_cl + 1 + ellmax
+        return ellmax
+
+    def _cl_dict(self, table, names, lmax):
+        scale = batch_scalar(self._rsigma8 ** 2, 1)
+        shape = self.engine.batch_shape + (lmax + 1,)
+        out = {name: table[name][:, :lmax + 1].reshape(shape) * scale for name in names}
+        out['ell'] = np.arange(lmax + 1)
+        return cl_table(out)
+
+    def unlensed_cl(self, ellmax=-1):
+        r"""Unlensed scalar (and tensor) :math:`C_\ell` ['tt', 'ee', 'bb', 'te'], unitless."""
+        lmax = self._resolve_ellmax(ellmax)
+        return self._cl_dict(self.engine.unl_tables(lmax), ('tt', 'ee', 'bb', 'te'), lmax)
+
+    def lensed_cl(self, ellmax=-1):
+        r"""Lensed :math:`C_\ell` ['tt', 'ee', 'bb', 'te'], unitless."""
+        lmax = self._resolve_ellmax(ellmax)
+        return self._cl_dict(self.engine.lensed_tables(lmax), ('tt', 'ee', 'bb', 'te'), lmax)
+
+    def lens_potential_cl(self, ellmax=-1):
+        r"""Lensing-potential :math:`C_\ell` ['pp', 'tp', 'ep'], unitless."""
+        lmax = self._resolve_ellmax(ellmax)
+        return self._cl_dict(self.engine.unl_tables(lmax), ('pp', 'tp', 'ep'), lmax)
 
 
 class Fourier(BaseSection):

@@ -1,9 +1,9 @@
 """Per-stage device profile of the halofit, HMcode, BAO-template and native
 Boltzmann paths on one CUDA card:
 
-    python3 -m cosmoprimo_tpu_torch.stage_profile [halofit] [HMcode] [BAO] [native]
+    python3 -m cosmoprimo_tpu_torch.stage_profile [halofit] [HMcode] [BAO] [native] [harmonic]
 
-(all four without an argument).
+(all five without an argument).
 
 For each stage (set-up, linear P(k), the sigma^2 matmul, halofit's Newton
 block, HMcode's growth ODE, dewiggle and one-halo NFW tensor, the whole
@@ -25,7 +25,11 @@ graphs and eagerly: the loops' device ms and launches per step under
 torch.profiler on an eager slice of 256 steps (a full phase is millions of
 launches), their stream ms over the whole stage (CUDA events; eagerly, the
 slice's per step times the steps), and the device's busy share; the
-recombination scan is timed, not profiled. Parameters
+recombination scan is timed, not profiled. The native CMB path (harmonic:
+B = 8, lmax 2900, the 198-k coarse grid): the emitting RK4 steps with and
+without the line-of-sight taps (device ms and launches a step, profiled
+eagerly on a slice), the sources with graphs, the projection beside its
+bound, Limber, the tensors and the lensing. Parameters
 are drawn from a seed. Informational only: it checks nothing, and prints the
 card's name and power limit.
 """
@@ -247,8 +251,72 @@ def native_profile(card, n=64, nk=256, kmax=1.0, z=(0.0, 1.0), rng=None, slice_s
     print(f'native pipeline B={n} nk={nk} kmax={kmax}: wall {wall:.1f} ms with CUDA graphs on {card}', flush=True)
 
 
+def harmonic_profile(card, n=8, lmax=2900, rng=None, slice_steps=256):
+    """Print the native CMB path's stages at full width (ellmax_cl = 2500 and
+    the default lensing margin: lmax 2900; tensors to l = 600): the emitting
+    RK4 phases profiled eagerly on a slice against the same slice without
+    the taps (the emitters' share of a step), the sources with graphs, the
+    projection beside its bound, Limber, the tensor loop and projection, and
+    the lensing."""
+    from .boltzmann import harmonic as Hm, lensing, perturbations as P, tensor as T
+    params = [torch.from_numpy(p).to(DEVICE) for p in (
+        rng.uniform(0.11, 0.13, n), rng.uniform(0.021, 0.023, n), rng.uniform(0.65, 0.70, n),
+        rng.uniform(0.94, 0.98, n), rng.uniform(2.9, 3.1, n))]
+    omega_cdm, omega_b, h, n_s, logA = params
+    cosmo = Cosmology(omega_cdm=omega_cdm, omega_b=omega_b, h=h, n_s=n_s, logA=logA, r=0.05, engine='native')
+    pp, th = cosmo.engine._perturbation_params(), cosmo.get_thermodynamics().table
+    src, src_main, ells, tables, n_quad_late = Hm._cl_inputs(pp, th, lmax)
+    k_c = src['k'].contiguous()
+    label = f'CMB B={n} lmax={lmax} nk={k_c.shape[-1]}'
+    run = P._setup(pp, th, k_c, None, None)
+    loops = {'phase A': (P.deriv_full, P._coefs_a, P._project_a, P._emit_los_a, P._psi_rates_a, run['y0'], 'eta_A'),
+             'phase B': (P.deriv_rsa, P._coefs_b, P._project_b, P._emit_los_b, P._psi_rates_b,
+                         P._ncdm_handoff(run['y0'], run['eta_A'][0], run['tabs'], run['lanes']), 'eta_B')}
+    for name, (deriv, coefs, project, emit, rates, y0, grid) in loops.items():
+        part = run[grid][:slice_steps + 1]
+        res = {}
+        for taps in (False, True):
+            busy, _, _, launches, _ = profile_events(lambda: P._rk4_loop(
+                deriv, coefs, project, y0, part, run['tabs'], run['lanes'], False,
+                emit=emit if taps else None, rates=rates if taps else None))
+            res[taps] = (busy / slice_steps, launches / slice_steps)
+        print(f'stage, {label}: {name} step, profiled eagerly on {slice_steps} steps: with the taps '
+              f'{res[True][0]:.4f} ms '
+              f'of device and {res[True][1]:.1f} launches a step, without {res[False][0]:.4f} ms and '
+              f'{res[False][1]:.1f} (the emitters {1 - res[False][0] / res[True][0]:.1%} of the device time) on {card}',
+              flush=True)
+    ms = stream_ms(lambda: P.compute_los_sources(pp, th, k_c))
+    print(f'stage, {label}: sources (compute_los_sources, 10240 + 6144 steps, graphs): stream {ms:.1f} ms on {card}',
+          flush=True)
+    cells = n * Hm._fine_grid(src_main, Hm.cl_kmin).numel() * (Hm.N_REC + n_quad_late)
+    # the bound: the four sources read once per multipole, or ~35 f64
+    # operations per (row, k, tau) cell and multipole, the larger
+    bound = max(32.0 * cells / 3.35e12, 35.0 * cells / 34e12) * ells.size * 1e3
+    named = {'projection (project_sources)':
+             lambda: Hm.project_sources(src_main, ells, tables, n_quad_late=n_quad_late),
+             'Limber (limber_pp)': lambda: Hm.limber_pp(src, ells),
+             'tensors (compute_tensor_cls, 8192 steps, l <= 600)': lambda: T.compute_tensor_cls(
+                 dict(pp, r=torch.full_like(h, 0.05), n_t=torch.zeros_like(h), alpha_t=torch.zeros_like(h)), th,
+                 lmax=600)}
+    for name, fn in named.items():
+        ms = stream_ms(fn)
+        busy, _, _, launches, _ = profile_events(fn)
+        extra = f'; bound {bound:.1f} ms (the sources read once per multipole)' if name.startswith('projection') else ''
+        print(f'stage, {label}: {name}: stream {ms:.1f} ms, device {busy:.1f} ms in {launches} launches{extra} '
+              f'on {card}', flush=True)
+    unl = Hm.compute_cls(pp, th, lmax=lmax)
+
+    def fn():
+        return lensing.lensed_cls(unl['tt'], unl['ee'], unl['bb'], unl['te'], unl['pp'], lmax=lmax - 400)
+
+    ms = stream_ms(fn)
+    busy, _, _, launches, _ = profile_events(fn)
+    print(f'stage, {label}: lensing (lensed_cls, n_r = 8192): stream {ms:.1f} ms, device {busy:.1f} ms in {launches} '
+          f'launches on {card}', flush=True)
+
+
 def main(argv=()):
-    names = set(argv) or {'halofit', 'HMcode', 'BAO', 'native'}
+    names = set(argv) or {'halofit', 'HMcode', 'BAO', 'native', 'harmonic'}
     if not torch.cuda.is_available():
         print('stage_profile: torch.cuda is not available', file=sys.stderr)
         return 1
@@ -291,6 +359,8 @@ def main(argv=()):
             print(f'  {ms:9.3f} ms  x{count:<5d} {name}', flush=True)
     if 'native' in names:
         native_profile(card, rng=rng)
+    if 'harmonic' in names:
+        harmonic_profile(card, rng=rng)
     return 0
 
 

@@ -18,7 +18,9 @@ Bars, and the deviations measured on the CPU:
   per row against the JAX engine's: exact;
 - the closed-model k grid: kmin against the JAX engine's rule, exact; rows
   that would need different k grids raise NotImplementedError;
-- Harmonic and Perturbations raise NotImplementedError (slice 5b).
+- the native Harmonic section refuses |Omega_k| > 0.12 on any row and a
+  batch whose rows would need different k grids (NotImplementedError, before
+  any work); Harmonic and Perturbations build for Omega_k = -0.05.
 
 The reference is run with its phase-A end point moved onto the streaming
 switch where its rounding lands past it (tests/native_reference.py; the
@@ -41,7 +43,7 @@ jax = pytest.importorskip('jax')
 import cosmoprimo_tpu as jcp  # noqa: E402
 from cosmoprimo_tpu import pipelines as jpipelines  # noqa: E402
 from cosmoprimo_tpu.boltzmann import perturbations as JP  # noqa: E402
-from cosmoprimo_tpu_torch import Cosmology, make_native_pk_pipeline_batched  # noqa: E402
+from cosmoprimo_tpu_torch import Cosmology, CosmologyInputError, make_native_pk_pipeline_batched  # noqa: E402
 from cosmoprimo_tpu_torch.boltzmann import perturbations as P  # noqa: E402
 from native_reference import exact_switch, switch_lanes  # noqa: E402
 
@@ -166,6 +168,13 @@ def test_closed_k_grid_and_sections():
     mixed = Cosmology(engine='native', device='cpu', Omega_k=torch.tensor([0.0, -0.05], dtype=torch.float64))
     with pytest.raises(NotImplementedError, match='different k grids'):
         mixed.engine.pk_tables()
-    for section in ('get_harmonic', 'get_perturbations'):
-        with pytest.raises(NotImplementedError, match='slice 5b'):
-            getattr(closed, section)()
+    # the CMB spectra: the |Omega_k| <= 0.12 window on every row, one k grid
+    # a batch, and both sections build for a closed model inside the window
+    with pytest.raises(CosmologyInputError, match='0.12'):
+        Cosmology(engine='native', device='cpu', A_s=2.1e-9, Omega_k=torch.tensor([0.0, -0.13])).get_harmonic()
+    mixed = Cosmology(engine='native', device='cpu', A_s=2.1e-9, Omega_k=torch.tensor([0.0, -0.05]))
+    with pytest.raises(NotImplementedError, match='different ones'):
+        mixed.get_harmonic().unlensed_cl(ellmax=100)
+    closed = Cosmology(engine='native', device='cpu', A_s=2.1e-9, Omega_k=-0.05)
+    assert callable(closed.get_harmonic().lensed_cl)
+    assert callable(closed.get_perturbations().table)
