@@ -123,9 +123,30 @@ Phases, each failing the run (non-zero exit) if its check fails:
     card, 4 cosmologies, 66 k to 0.05 /Mpc, n_steps = (768, 384, 2048) and
     N_STEPS_T = 2048: within 1e-13.
 
+21. the emulator serving path: an emulator in the layout of the repo's
+    'native-base' recipe (native_base_emulator_state: its quantity names,
+    inputs, boxes, nets 64 x 8 silu with folded batch norm, 10 x 5 tanh,
+    64 x 5 silu, 64 x 6 silu, the emulator-level FourierNormOperation and
+    cl_norm, Cls to 2500; seeded weights), written to a temporary .npy,
+    read back and served as Cosmology(engine=EmulatedEngine.read(path)) on
+    B = 4096 cosmologies inside the recipe's boxes: distances and growth
+    rate at the DESI DR1 redshifts, rs_drag, P(k), sigma8_m and to_xi()
+    (the kernel: its launch count must grow), the lensed, unlensed and
+    lens-potential Cls; finite; the first 32 rows against the CPU at 1e-10
+    of each row's max; a sigma8= batch returns its input at rtol 1e-10;
+    torch.func.jacfwd of lensed_cl()['tt'] in (logA, n_s, h, omega_b,
+    omega_cdm, tau_reio) on 8 rows, the card against the CPU at 1e-9; the
+    build-and-serve and harmonic-only walls (median of 5 after a warm-up)
+    and the peak memory;
+22. converted nets at their published widths: a synthetic cosmopower v1
+    release (the bolliet2023 layout, TT, TE, EE, PP and derived networks of
+    4 hidden layers x 512 units, its trainable activation, modes 2..2500)
+    and a jaxcapse TT network, converted by the port's converters, served
+    at B = 4096, the first 32 rows against the CPU at 1e-10, their walls.
+
 Each of phases 14-17 prints its wall (median of 5 after a warm-up). The
-kernel's launches in the main-path runs of phases 4-8, 11, 14, 15 and 18
-are summed into the "kernels" line. The last line is {"ok": true, "device":
+kernel's launches in the main-path runs of phases 4-8, 11, 14, 15, 18 and
+21 are summed into the "kernels" line. The last line is {"ok": true, "device":
 {...}}. Imports nothing of JAX.
 """
 
@@ -205,6 +226,141 @@ CL_CHECK = dict(rows=2, ellmax=200, extra={'lensing_margin': 64}, n_steps=(2048,
 CL_RTOL = 1e-8             # each spectrum's max (TE: its sqrt(TT EE) envelope), card against CPU
 SERIES_RTOL = 1e-9         # each field's max, card against CPU
 EMIT_GRAPH = dict(rows=4, kmax=0.05, n_steps=(768, 384, 2048), n_steps_t=2048)
+# slice 6a: the emulator serving path. Phase 21 serves an emulator in the
+# layout that the repo's 'native-base' recipe trains
+# (cosmoprimo_tpu/emulators/train/recipes.py:230-275): its quantity names,
+# inputs, boxes, widths and operation chains, the weights drawn from a seed;
+# phase 22 two converted foreign nets at their published widths
+B_EMU = 4096
+ELLMAX_EMU = 2500
+EMU_RTOL = 1e-10           # tables, Cls and sigma8 input, card against CPU
+EMU_JAC_ROWS = 8
+EMU_JAC_RTOL = 1e-9        # jacfwd of lensed_cl()['tt'], card against CPU
+NATIVE_BASE = {'logA': (2.8, 3.3), 'n_s': (0.88, 1.06), 'h': (0.55, 0.82), 'omega_b': (0.019, 0.026),
+               'omega_cdm': (0.08, 0.20)}
+NATIVE_BASE_SECTIONS = {
+    # (inputs and their boxes, hidden widths, activation, batch norm); the
+    # background inputs after the recipe's omega_to_Omega_m
+    'background': ({'h': (0.5, 0.9), 'm_ncdm': (0.0, 1.0), 'w0_fld': (-2.0, -0.3), 'wa_fld': (-2.0, 1.5),
+                    'Omega_m': ((0.05 + 0.015) / 0.9 ** 2, (0.30 + 0.035) / 0.5 ** 2)}, (64,) * 8, 'silu', True),
+    'thermodynamics': ({'h': (0.5, 0.9), 'omega_cdm': (0.05, 0.30), 'omega_b': (0.015, 0.035), 'm_ncdm': (0.0, 1.0),
+                        'tau_reio': (0.02, 0.13)}, (10,) * 5, 'tanh', False),
+    'fourier': ({**NATIVE_BASE, 'm_ncdm': (0.0, 0.6), 'w0_fld': (-1.5, -0.5), 'wa_fld': (-1.5, 1.0)}, (64,) * 5,
+                'silu', False),
+    'harmonic': ({**NATIVE_BASE, 'm_ncdm': (0.0, 0.6), 'tau_reio': (0.02, 0.12)}, (64,) * 6, 'silu', False),
+}
+CL_NORM = ("v / jnp.exp(X['logA'] - 3.) / jnp.exp(-2 * X['tau_reio'])",
+           "v * jnp.exp(X['logA'] - 3.) * jnp.exp(-2 * X['tau_reio'])")
+
+
+def _band(fiducial, rel=0.05, add=0.0):
+    """Scale limits around a fiducial table (its NaN beyond the range of a
+    background table filled with its last finite value): the nets' O(1)
+    outputs land within a few percent of it, and a positive table stays
+    positive."""
+    fiducial = np.array(fiducial, dtype=np.float64)
+    if fiducial.ndim:
+        last = np.where(np.isfinite(fiducial), np.arange(fiducial.shape[-1]), 0)
+        fiducial = np.take_along_axis(fiducial, np.maximum.accumulate(last, axis=-1), axis=-1)
+    half = rel * np.abs(fiducial) + add
+    return [fiducial - half, fiducial + half]
+
+
+def mlp_weights(rng, sizes, activation, batch_norm):
+    """Weights of a dense network of layer ``sizes`` in the layout the MLP
+    engine exports (per layer 'layer_{i}' {'kernel', 'bias'}, 'batch_{i}'
+    and its statistics, 'alpha_{i}' and 'beta_{i}' of 'identity-silu'):
+    from ``rng``, the kernels scaled by 1/sqrt(fan_in)."""
+    weights, stats = {}, {}
+    for i in range(len(sizes) - 1):
+        weights[f'layer_{i}'] = {'kernel': rng.standard_normal((sizes[i], sizes[i + 1])) / np.sqrt(sizes[i]),
+                                 'bias': 0.1 * rng.standard_normal(sizes[i + 1])}
+        if batch_norm and i > 0:
+            weights[f'batch_{i}'] = {'scale': 1.0 + 0.1 * rng.standard_normal(sizes[i]),
+                                     'bias': 0.1 * rng.standard_normal(sizes[i])}
+            stats[f'batch_{i}'] = {'mean': 0.1 * rng.standard_normal(sizes[i]),
+                                   'var': 1.0 + 0.1 * rng.random(sizes[i])}
+        if activation == 'identity-silu' and i < len(sizes) - 2:
+            weights[f'alpha_{i}'], weights[f'beta_{i}'] = rng.standard_normal(), rng.standard_normal()
+    return weights, stats
+
+
+def mlp_engine_state(rng, params, nhidden, activation, yshape, ylimits, yoperations=(), batch_norm=False):
+    """The state of an MLP engine (the JAX package's schema, numpy): x and y
+    Scale operations on the given boxes and limits, ``yoperations`` before
+    the y Scale, and a dense network of hidden widths ``nhidden`` with
+    weights from ``rng`` scaled by 1/sqrt(fan_in) (batch normalization
+    folded into its affine operation)."""
+    from cosmoprimo_tpu_torch.emulators.mlp import MLPEmulatorEngine
+    from cosmoprimo_tpu_torch.emulators.operations import Operation, ScaleOperation
+    engine = MLPEmulatorEngine(nhidden=nhidden, activation=activation,
+                               yoperation=[Operation(*op) if isinstance(op, tuple) else op for op in yoperations])
+    engine.params, engine.xshape, engine.yshape = list(params), (len(params),), tuple(yshape)
+    xscale = ScaleOperation(limits=[np.array([box[0] for box in params.values()]),
+                                    np.array([box[1] for box in params.values()])])
+    xscale.initialize(np.zeros((1, len(params))))
+    yscale = ScaleOperation(limits=ylimits)
+    yscale.initialize(np.zeros((1,) + tuple(yshape)))
+    engine.xoperations, engine.yoperations[-1] = [xscale], yscale
+    weights, stats = mlp_weights(rng, [len(params)] + list(nhidden) + [int(np.prod(yshape))], activation,
+                                 batch_norm)
+    engine.batch_norm = batch_norm
+    engine.model_operations = engine._export_operations(weights, stats)
+    return engine.__getstate__()
+
+
+def native_base_emulator_state(seed=0, width=1, ellmax_cl=ELLMAX_EMU):
+    """An emulator state (the JAX package's schema, numpy) in the layout of
+    the 'native-base' recipe: the background, thermodynamics, fourier and
+    harmonic quantities that its sampler draws from the native engine (the
+    emulated sections' states), each section's inputs, boxes, widths
+    (divided by ``width``) and operation chains, the fourier tables behind
+    the emulator-level FourierNormOperation, the Cls behind cl_norm, at
+    ``ellmax_cl``. Weights from ``np.random.default_rng(seed)``; the y
+    limits bracket smooth fiducial tables, so that the served quantities
+    are positive where they must be (the P(k) tables)."""
+    import torch
+    from cosmoprimo_tpu_torch import Cosmology
+    from cosmoprimo_tpu_torch.cosmology import DefaultBackground
+    from cosmoprimo_tpu_torch.emulators import FourierNormOperation
+    from cosmoprimo_tpu_torch.emulators.emulated import Background, get_default_k_callable, get_default_z_callable
+    rng = np.random.default_rng(seed)
+    fiducial = Cosmology(engine='eisenstein_hu', h=0.68, omega_cdm=0.12, omega_b=0.022, m_ncdm=0.06, w0_fld=-0.9,
+                         wa_fld=0.1, device='cpu')
+    engines, fixed = {}, {}
+
+    def add(section, name, yshape, ylimits, yoperations=()):
+        params, nhidden, activation, batch_norm = NATIVE_BASE_SECTIONS[section]
+        engines[f'{section}.{name}'] = mlp_engine_state(rng, params, tuple(n // width for n in nhidden), activation,
+                                                        yshape, ylimits, yoperations, batch_norm)
+
+    background = Background.__getstate__(DefaultBackground(fiducial.engine))
+    fixed['background.z'] = background.pop('z').numpy()
+    for name, table in background.items():
+        add('background', name, table.shape, _band(table.numpy()))
+    for name, value in {'rs_drag': 100.0, 'z_drag': 1060.0, 'rs_star': 98.0, 'z_star': 1090.0,
+                        'YHe': 0.245}.items():
+        add('thermodynamics', name, (), _band(value, rel=0.01))
+    k, z = get_default_k_callable(), get_default_z_callable()
+    fixed['fourier.k'], fixed['fourier.z'] = k, z
+    growth = fiducial.get_background().growth_factor(torch.from_numpy(z)).numpy()
+    log_pkz = np.broadcast_to(2 * np.log10(growth / growth[0]), (k.size, z.size))
+    add('fourier', 'pk.delta_cb.delta_cb', (k.size,), _band(np.ones(k.size)))
+    add('fourier', 'pk.delta_m.delta_m', (k.size, z.size), _band(np.zeros((k.size, z.size)), add=0.005), ['log10'])
+    add('fourier', 'pkz', (k.size, z.size), _band(log_pkz, rel=0.0, add=0.02), ['log10'])
+    ell = np.arange(ellmax_cl + 1)
+    shape = np.where(ell >= 2, 2 * np.pi / np.maximum(ell * (ell + 1), 1) * 2e-10 / (1 + (ell / 1500.) ** 2), 0.0)
+    cls = {'unlensed_cl.tt': shape, 'unlensed_cl.ee': 0.02 * shape, 'unlensed_cl.te': 0.1 * shape,
+           'lensed_cl.tt': shape, 'lensed_cl.ee': 0.02 * shape, 'lensed_cl.bb': 1e-4 * shape,
+           'lensed_cl.te': 0.1 * shape, 'lens_potential_cl.pp': 1e-7 * shape / np.maximum(ell, 1) ** 2,
+           'lens_potential_cl.tp': 1e-4 * shape / np.maximum(ell, 1), 'lens_potential_cl.ep': 1e-6 * shape}
+    for name, table in cls.items():
+        add('harmonic', name, table.shape, _band(table), [CL_NORM])
+    fixed['harmonic.unlensed_cl.bb'] = np.zeros(ellmax_cl + 1)   # r = 0: no tensor BB before lensing
+    norm = FourierNormOperation()
+    norm.norm_pk_names = ['fourier.pk.delta_m.delta_m']
+    return {'engines': engines, 'xoperations': [], 'yoperations': [norm.__getstate__()], 'defaults': {},
+            'fixed': fixed}
 
 
 def check(ok, message):
@@ -938,6 +1094,224 @@ def emitting_graphs(rng, card):
     check(all(err <= GRAPH_RTOL for err in errs), 'the emitting loops replayed from graphs disagree with eager')
 
 
+def emulator_params(rng, n, names=('logA', 'n_s', 'h', 'omega_b', 'omega_cdm', 'm_ncdm', 'w0_fld', 'wa_fld',
+                                   'tau_reio')):
+    """Cosmologies inside every box of the 'native-base' recipe (w0 + wa
+    < 0, so that early radiation domination holds)."""
+    boxes = {'logA': (2.8, 3.3), 'n_s': (0.88, 1.06), 'h': (0.55, 0.82), 'omega_b': (0.019, 0.026),
+             'omega_cdm': (0.08, 0.20), 'm_ncdm': (0.0, 0.6), 'w0_fld': (-1.5, -0.5), 'wa_fld': (-1.5, 0.0),
+             'tau_reio': (0.02, 0.12), 'sigma8': (0.7, 0.9)}
+    return {name: rng.uniform(*boxes[name], n) for name in names}
+
+
+def rows_err(got, ref):
+    """:func:`rel_err` of the card's rows against the CPU's, each row
+    flattened."""
+    return rel_err(got.cpu().reshape(len(ref), -1), ref.reshape(len(ref), -1))
+
+
+def emulator_serving(fftlog_kernel, rng, card):
+    """Phase 21: the 'native-base' emulator at full width (the nets 64 wide,
+    Cls to 2500), written to a temporary .npy, read back and served as
+    Cosmology(engine=EmulatedEngine.read(path)) on B_EMU cosmologies: the
+    background at the DESI redshifts, rs_drag, P(k) and sigma8_m (the
+    kernel), xi (the kernel), the Cls; the card against the CPU on
+    N_COMPARE rows, a sigma8 input, jacfwd of lensed TT against the CPU;
+    walls and peak memory. Returns the kernel's launches in the main run."""
+    import os
+    import shutil
+    import tempfile
+    from cosmoprimo_tpu_torch import Cosmology
+    from cosmoprimo_tpu_torch.emulators import EmulatedEngine, Emulator
+    directory = tempfile.mkdtemp()
+    try:
+        t0 = time.perf_counter()
+        state = native_base_emulator_state()
+        fn = os.path.join(directory, 'native_base.npy')
+        Emulator.from_state(state).write(fn)
+        check(set(Emulator.read(fn).engines) == set(state['engines']), 'the emulator file does not round-trip')
+        build_s = time.perf_counter() - t0
+        engine = EmulatedEngine.read(fn)
+        params = emulator_params(rng, B_EMU)
+        k = np.geomspace(1e-3, 1.0, 64)
+        s = np.geomspace(10.0, 150.0, 32)
+
+        def serve(values, device, harmonic_only=False):
+            cosmo = Cosmology(engine=engine, ellmax_cl=ELLMAX_EMU, device=device,
+                              **{name: torch.from_numpy(value).to(device) for name, value in values.items()})
+            hr = cosmo.get_harmonic()
+            out = {f'{kind}.{key}': value for kind, table in (('lensed', hr.lensed_cl()), ('unlensed', hr.unlensed_cl()),
+                                                               ('potential', hr.lens_potential_cl()))
+                   for key, value in table.items() if key != 'ell'}
+            if harmonic_only:
+                return out
+            ba, fo = cosmo.get_background(), cosmo.get_fourier()
+            z = torch.from_numpy(DESI_Z).to(device)
+            pk = fo.pk_interpolator()
+            out.update({'chi': ba.comoving_radial_distance(z), 'growth_rate': ba.growth_rate(z),
+                        'rs_drag': cosmo.get_thermodynamics().rs_drag[..., None], 'pk': pk(k, z),
+                        'sigma8': fo.sigma8_m[..., None], 'xi': pk.to_xi()(s, z)})
+            return out
+
+        torch.cuda.reset_peak_memory_stats()
+        fftlog_kernel.launches = 0
+        out = serve(params, DEVICE)
+        torch.cuda.synchronize()
+        launches = fftlog_kernel.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f'emulated (native-base layout, {len(state["engines"])} nets): B={B_EMU}, {len(out)} outputs, '
+              f'kernel launches {launches}, peak memory {peak_gb:.2f} GB; state built and written in '
+              f'{build_s:.2f} s', flush=True)
+        check(launches > 0, 'the emulated Fourier section did not launch the FFTLog kernel')
+        check(all(bool(torch.isfinite(value).all()) for value in out.values()), 'emulated outputs are not all finite')
+        ref = serve({name: value[:N_COMPARE] for name, value in params.items()}, 'cpu')
+        errs = {name: rows_err(out[name][:N_COMPARE], value) for name, value in ref.items()}
+        worst = max(errs, key=errs.get)
+        print(f'emulated, card vs CPU, first {N_COMPARE} rows: worst {worst} {errs[worst]:.3e} of its row max '
+              f'(bar {EMU_RTOL:g}); chi {errs["chi"]:.3e}, pk {errs["pk"]:.3e}, sigma8 {errs["sigma8"]:.3e}, '
+              f'xi {errs["xi"]:.3e}, lensed tt {errs["lensed.tt"]:.3e}', flush=True)
+        check(errs[worst] <= EMU_RTOL, 'the emulated engine disagrees between the card and the CPU')
+
+        # the rescaling direction: sigma8 in, the nets' logA from the A_s guess
+        sigma8 = emulator_params(rng, B_EMU, names=[name for name in params if name != 'logA'] + ['sigma8'])
+        cosmo = Cosmology(engine=engine, ellmax_cl=ELLMAX_EMU,
+                          **{name: torch.from_numpy(value).to(DEVICE) for name, value in sigma8.items()})
+        got = cosmo.get_fourier().sigma8_m.cpu().numpy()
+        sigma8_err = float(np.max(np.abs(got / sigma8['sigma8'] - 1)))
+        print(f'emulated, sigma8 input at B={B_EMU}: sigma8_m against the input {sigma8_err:.3e} '
+              f'(bar {EMU_RTOL:g})', flush=True)
+        check(sigma8_err <= EMU_RTOL, 'the emulated sigma8 rescaling does not return its input')
+
+        # forward mode: jacfwd of lensed TT in six parameters, card against CPU
+        names = ('logA', 'n_s', 'h', 'omega_b', 'omega_cdm', 'tau_reio')
+        fixed = {name: value[:EMU_JAC_ROWS] for name, value in params.items() if name not in names}
+
+        def jacobian(device):
+            def tt(*args):
+                values = {**{name: torch.from_numpy(value).to(device) for name, value in fixed.items()},
+                          **dict(zip(names, args))}
+                return Cosmology(engine=engine, ellmax_cl=ELLMAX_EMU, **values).get_harmonic().lensed_cl()['tt']
+            args = [torch.from_numpy(params[name][:EMU_JAC_ROWS]).to(device) for name in names]
+            jac = torch.func.jacfwd(tt, argnums=tuple(range(len(names))))(*args)
+            return torch.stack([torch.stack([j[i, :, i] for i in range(EMU_JAC_ROWS)]) for j in jac], dim=-1)
+
+        jac_err = rows_err(jacobian(DEVICE), jacobian('cpu'))
+        print(f'emulated, jacfwd of lensed_cl()["tt"] in {names} on {EMU_JAC_ROWS} rows, card vs CPU: '
+              f'{jac_err:.3e} of each row\'s max (bar {EMU_JAC_RTOL:g})', flush=True)
+        check(jac_err <= EMU_JAC_RTOL, 'the emulated jacfwd disagrees between the card and the CPU')
+
+        wall = wall_ms(lambda: serve(params, DEVICE))
+        wall_cl = wall_ms(lambda: serve(params, DEVICE, harmonic_only=True))
+        print(f'emulated wall: build and serve {wall:.3f} ms per batch of {B_EMU} ({B_EMU / wall * 1e3:.1f} '
+              f'cosmologies/s), harmonic only {wall_cl:.3f} ms (median of 5 after a warm-up); peak memory '
+              f'{peak_gb:.2f} GB on {card}', flush=True)
+        return launches
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def cosmopower_release(directory, rng, ells, nhidden=512, nlayers=5):
+    """A synthetic cosmopower v1 release (the bolliet2023 layout: TTTEEE,
+    PP and derived-parameters folders, arr_0-wrapped dicts) with TT, TE,
+    EE, PP and derived networks of nlayers - 1 hidden layers x nhidden
+    units and cosmopower's trainable activation, modes ``ells``; seeded
+    weights scaled by 1/sqrt(fan_in)."""
+    import os
+    params = np.array(['omega_b', 'omega_cdm', 'h', 'tau_reio', 'n_s', 'ln10^{10}A_s'])
+    mean, std = np.array([0.0224, 0.12, 0.68, 0.06, 0.965, 3.04]), np.array([0.001, 0.01, 0.05, 0.02, 0.02, 0.1])
+    nets = {('TTTEEE', 'TT_v1'): (ells.size, -10.0), ('TTTEEE', 'TE_v1'): (ells.size, 1e-12),
+            ('TTTEEE', 'EE_v1'): (ells.size, -12.0), ('PP', 'PP_v1'): (ells.size, -8.0),
+            ('derived-parameters', 'DER_v1'): (14, 1.0)}
+    for (folder, name), (n_out, level) in nets.items():
+        sizes = [params.size] + [nhidden] * (nlayers - 1) + [n_out]
+        arrays = {'n_layers': nlayers, 'parameters': params, 'param_train_mean': mean, 'param_train_std': std,
+                  'feature_train_mean': np.full(n_out, level), 'feature_train_std': np.full(n_out, 0.05 * abs(level)),
+                  'modes': ells}
+        for i in range(nlayers):
+            arrays[f'W_{i}'] = rng.standard_normal((sizes[i], sizes[i + 1])) / np.sqrt(sizes[i])
+            arrays[f'b_{i}'] = 0.1 * rng.standard_normal(sizes[i + 1])
+        for i in range(nlayers - 1):
+            arrays[f'alphas_{i}'], arrays[f'betas_{i}'] = rng.standard_normal(nhidden), rng.random(nhidden)
+        os.makedirs(os.path.join(directory, folder), exist_ok=True)
+        np.savez(os.path.join(directory, folder, f'{name}.npz'), arr_0=np.array(arrays, dtype=object))
+
+
+def jaxcapse_directory(directory, rng, n_out):
+    """A synthetic jaxcapse TT network in the layout of
+    tests/test_emulators.py::_make_synthetic_capse (one hidden layer of 16
+    silu units), with ``n_out`` outputs."""
+    import os
+    sizes = [6, 16, n_out]
+    weights = []
+    for i in range(len(sizes) - 1):
+        weights += [(rng.standard_normal((sizes[i + 1], sizes[i])) / np.sqrt(sizes[i])).ravel(order='F'),
+                    0.01 * rng.standard_normal(sizes[i + 1]) + (1.0 if i == len(sizes) - 2 else 0.0)]
+    folder = os.path.join(directory, 'TT')
+    os.makedirs(folder)
+    np.save(os.path.join(folder, 'weights.npy'), np.concatenate(weights))
+    np.save(os.path.join(folder, 'nminmax.npy'), np.stack([np.array([2.5, 0.9, 60, 0.02, 0.1, 0.01]),
+                                                           np.array([3.5, 1.0, 75, 0.024, 0.14, 0.10])], axis=-1))
+    np.save(os.path.join(folder, 'outminmax.npy'), np.stack([np.full(n_out, 1e3), np.full(n_out, 6e3)], axis=-1))
+    with open(os.path.join(folder, 'nn_setup.json'), 'w') as f:
+        json.dump({'n_input_features': 6, 'n_output_features': n_out,
+                   'layers': {'layer_1': {'n_neurons': 16, 'activation_function': 'silu'}}}, f)
+
+
+def converted_nets(rng, card):
+    """Phase 22: a cosmopower v1 release (4 x 512, modes 2..2500) and a
+    jaxcapse TT network written into a temporary directory, converted by the
+    port's converters and served through Cosmology at B_EMU: the Cls and
+    the unpacked derived parameters, the card against the CPU on
+    N_COMPARE rows, and the walls."""
+    import os
+    import shutil
+    import tempfile
+    from cosmoprimo_tpu_torch import Cosmology
+    from cosmoprimo_tpu_torch.emulators import EmulatedEngine
+    from cosmoprimo_tpu_torch.emulators.conversion import (convert_cosmopower_release_to_cosmoprimo,
+                                                           convert_jaxcapse_to_cosmoprimo)
+    directory = tempfile.mkdtemp()
+    try:
+        ells = np.arange(2, ELLMAX_EMU + 1)
+        release = os.path.join(directory, 'cosmopower_bolliet2023_base')
+        cosmopower_release(release, rng, ells)
+        capse = os.path.join(directory, 'capse')
+        jaxcapse_directory(capse, rng, ells.size)
+        engines = {}
+        for label, emulator in (('cosmopower v1 release, 4 x 512', convert_cosmopower_release_to_cosmoprimo(release)),
+                                ('jaxcapse', convert_jaxcapse_to_cosmoprimo(capse))):
+            fn = os.path.join(directory, f'{len(engines)}.npy')
+            emulator.write(fn)
+            engines[label] = EmulatedEngine.read(fn)
+        params = emulator_params(rng, B_EMU, names=('logA', 'n_s', 'h', 'omega_b', 'omega_cdm', 'tau_reio'))
+
+        def serve(engine, values, device, release):
+            cosmo = Cosmology(engine=engine, ellmax_cl=ELLMAX_EMU, device=device,
+                              **{name: torch.from_numpy(value).to(device) for name, value in values.items()})
+            hr = cosmo.get_harmonic()
+            out = {key: value for key, value in hr.lensed_cl().items() if key != 'ell'}
+            if release:   # its lensing potential, and its packed derived parameters unpacked
+                out['pp'] = hr.lens_potential_cl()['pp']
+                th = cosmo.get_thermodynamics()
+                out.update({name: getattr(th, name)[..., None] for name in ('rs_drag', 'z_drag', 'rs_star', 'z_star')})
+            return out
+
+        for label, engine in engines.items():
+            release = label.startswith('cosmopower')
+            out = serve(engine, params, DEVICE, release)
+            check(all(bool(torch.isfinite(value).all()) for value in out.values()), f'{label}: outputs not finite')
+            ref = serve(engine, {name: value[:N_COMPARE] for name, value in params.items()}, 'cpu', release)
+            errs = {name: rows_err(out[name][:N_COMPARE], value) for name, value in ref.items()}
+            worst = max(errs, key=errs.get)
+            wall = wall_ms(lambda: serve(engine, params, DEVICE, release))
+            print(f'converted {label}: {sorted(out)}, B={B_EMU}; card vs CPU, first {N_COMPARE} rows, worst '
+                  f'{worst} {errs[worst]:.3e} (bar {EMU_RTOL:g}); wall {wall:.3f} ms per batch (median of 5 after a '
+                  f'warm-up) on {card}', flush=True)
+            check(errs[worst] <= EMU_RTOL, f'{label}: the card and the CPU disagree')
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
 def kernel_bound_ms(x, args):
     """The least time the card could take for one call of the core on ``x``
     (rows, size) with ``args``: each input read once and the output written
@@ -1175,6 +1549,12 @@ def main():
     launches += cmb_spectra(fftlog_kernel, rng, card)
     perturbation_table(card)
     emitting_graphs(rng, card)
+
+    # 21-22. the emulator serving path
+    t0 = time.perf_counter()
+    launches += emulator_serving(fftlog_kernel, rng, card)
+    converted_nets(rng, card)
+    print(f'phases 21-22: {time.perf_counter() - t0:.1f} s', flush=True)
 
     print(json.dumps({'kernels': [{
         'name': 'fftlog_core', 'route': 'cuda', 'source': 'cosmoprimo_tpu_torch/csrc/fftlog_core.cu',

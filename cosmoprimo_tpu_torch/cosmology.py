@@ -368,7 +368,7 @@ def compile_params(args, engine=None, device=None):
     def prepare_T(T, n):
         if T is None:
             T = constants.TNCDM_OVER_CMB
-        if isinstance(T, torch.Tensor) or np.ndim(T) == 0:
+        if isinstance(T, torch.Tensor) or (not isinstance(T, (list, tuple)) and np.ndim(T) == 0):
             T = [T] * n
         T = list(T)
         if n and not len(T):
@@ -608,6 +608,11 @@ _ENGINE_MODULES = {
     'tabulated': 'models.tabulated',
     'astropy': 'models.astropy',
     'native': 'models.native',
+    'emulated': 'emulators.emulated',
+    'capse': 'emulators.emulated',
+    'cosmopower_bolliet2023': 'emulators.emulated',
+    'emu_camb_mnu_w_wa_cmb': 'emulators.emulated',
+    'cosmopower_jense2024': 'emulators.emulated',
 }
 
 

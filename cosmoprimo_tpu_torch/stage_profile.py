@@ -1,9 +1,9 @@
 """Per-stage device profile of the halofit, HMcode, BAO-template and native
 Boltzmann paths on one CUDA card:
 
-    python3 -m cosmoprimo_tpu_torch.stage_profile [halofit] [HMcode] [BAO] [native] [harmonic]
+    python3 -m cosmoprimo_tpu_torch.stage_profile [halofit] [HMcode] [BAO] [native] [harmonic] [emulated]
 
-(all five without an argument).
+(all six without an argument; 'emulated' from the repository's root).
 
 For each stage (set-up, linear P(k), the sigma^2 matmul, halofit's Newton
 block, HMcode's growth ODE, dewiggle and one-halo NFW tensor, the whole
@@ -29,7 +29,10 @@ recombination scan is timed, not profiled. The native CMB path (harmonic:
 B = 8, lmax 2900, the 198-k coarse grid): the emitting RK4 steps with and
 without the line-of-sight taps (device ms and launches a step, profiled
 eagerly on a slice), the sources with graphs, the projection beside its
-bound, Limber, the tensors and the lensing. Parameters
+bound, Limber, the tensors and the lensing. The emulated path (chip_smoke's
+phase 21: the 'native-base' layout at B = 4096) by section, with the
+FourierNormOperation and the FFTLog stages, and the converted cosmopower
+release of phase 22. Parameters
 are drawn from a seed. Informational only: it checks nothing, and prints the
 card's name and power limit.
 """
@@ -315,8 +318,96 @@ def harmonic_profile(card, n=8, lmax=2900, rng=None, slice_steps=256):
           f'launches on {card}', flush=True)
 
 
+def emulated_profile(card, n=4096, rng=None):
+    """Print the emulated engine's stages at chip_smoke's phase-21 size (the
+    'native-base' layout of chip_smoke.native_base_emulator_state, B = 4096,
+    Cls to 2500): the set-up, each section's nets and section, the
+    FourierNormOperation and its BBKS primordial spectrum, the P(k)
+    interpolator, sigma8_m and to_xi (the FFTLog kernel), the Cls; then the
+    whole build-and-serve against its wall (the device's idle share), and
+    the converted cosmopower release of phase 22. Run from the repository's
+    root (it imports chip_smoke)."""
+    import os
+    import tempfile
+    import chip_smoke
+    from .emulators import EmulatedEngine, Emulator
+    from .emulators.conversion import convert_cosmopower_release_to_cosmoprimo
+    directory = tempfile.mkdtemp()
+    fn = os.path.join(directory, 'native_base.npy')
+    Emulator.from_state(chip_smoke.native_base_emulator_state()).write(fn)
+    engine = EmulatedEngine.read(fn)
+    values = {name: torch.from_numpy(value).to(DEVICE) for name, value in chip_smoke.emulator_params(rng, n).items()}
+    z = torch.from_numpy(chip_smoke.DESI_Z).to(DEVICE)
+    k, s = np.geomspace(1e-3, 1.0, 64), np.geomspace(10.0, 150.0, 32)
+
+    def setup():
+        return Cosmology(engine=engine, ellmax_cl=chip_smoke.ELLMAX_EMU, **values)
+
+    cosmo = setup()
+    eng = cosmo.engine
+    predictor = eng._predictor
+    entry = predictor.index['fourier']
+    raw = {name: eng._emulator.engines[name].predict(predictor.x) for name in entry['static']}
+    norm = eng._emulator.yoperations[0]
+    fixed = {**entry['fixed'], **raw}
+    fo = cosmo.get_fourier()
+    pk = fo.pk_interpolator()
+
+    def fresh(section):
+        def build():
+            eng._sections.pop(section, None)
+            return eng.get_section(section)
+        return build
+
+    def serve():
+        c = setup()
+        ba, fourier, hr = c.get_background(), c.get_fourier(), c.get_harmonic()
+        interp = fourier.pk_interpolator()
+        return (ba.comoving_radial_distance(z), ba.growth_rate(z), c.get_thermodynamics().rs_drag, interp(k, z),
+                fourier.sigma8_m, interp.to_xi()(s, z), hr.lensed_cl(), hr.unlensed_cl(), hr.lens_potential_cl())
+
+    label = f'emulated (native-base layout) B={n}'
+    named = {'set-up (Cosmology, EmulatedEngine, the inputs)': setup,
+             'background (7 nets 64 x 8 and the section)': fresh('background'),
+             'thermodynamics (5 nets 10 x 5)': fresh('thermodynamics'),
+             'fourier nets (3 nets 64 x 5, 422 and 12 660 outputs)':
+                 lambda: [eng._emulator.engines[name].predict(predictor.x) for name in entry['static']],
+             'FourierNormOperation.inverse (per-row splines on (B, 30, 422))':
+                 lambda: norm.inverse(dict(fixed), X=dict(predictor.cosmo_params)),
+             "  of which its BBKS P(k / h) (torch.func.vmap over the rows)":
+                 lambda: norm._prim(fixed['fourier.k'], fixed['fourier.z'], dict(predictor.cosmo_params)),
+             'fourier section (nets, norm, tables)': fresh('fourier'),
+             'pk_interpolator (2D spline build)': fo.pk_interpolator,
+             'sigma8_m (TophatVariance, the FFTLog kernel)': lambda: pk.sigma_rz(8.0, 0.0),
+             'to_xi (B x 30 rows, the FFTLog kernel, the xi spline build)': pk.to_xi,
+             'harmonic (10 nets 64 x 6, 2501 outputs, and the section)': fresh('harmonic')}
+    for name, fn in named.items():
+        busy, _, _, launches, _ = profile_events(fn)
+        print(f'stage, {label}: {name}: device {busy:.4f} ms in {launches} launches (torch.profiler), stream '
+              f'{cuda_ms(fn):.4f} ms (CUDA events) on {card}', flush=True)
+    release = os.path.join(directory, 'release')
+    chip_smoke.cosmopower_release(release, rng, np.arange(2, chip_smoke.ELLMAX_EMU + 1))
+    convert_cosmopower_release_to_cosmoprimo(release).write(os.path.join(directory, 'release.npy'))
+    release_engine = EmulatedEngine.read(os.path.join(directory, 'release.npy'))
+    release_values = {name: values[name] for name in ('logA', 'n_s', 'h', 'omega_b', 'omega_cdm', 'tau_reio')}
+
+    def serve_release():
+        c = Cosmology(engine=release_engine, ellmax_cl=chip_smoke.ELLMAX_EMU, **release_values)
+        return c.get_harmonic().lensed_cl(), c.get_thermodynamics().rs_drag
+
+    for title, fn in ((f'{label}, build and serve', serve),
+                      (f'converted cosmopower v1 release (5 nets 4 x 512) B={n}, build and serve', serve_release)):
+        wall = wall_ms(fn)
+        busy, profiled, kinds, launches, top = profile_events(fn)
+        print(f'profile, {title}: device busy {busy:.3f} ms in {launches} kernel launches ({kinds} kinds); wall '
+              f'{wall:.3f} ms without the profiler (idle {1 - busy / wall:.1%}), {profiled:.3f} ms under it; on '
+              f'{card}', flush=True)
+        for name, ms, count in top:
+            print(f'  {ms:9.3f} ms  x{count:<5d} {name}', flush=True)
+
+
 def main(argv=()):
-    names = set(argv) or {'halofit', 'HMcode', 'BAO', 'native', 'harmonic'}
+    names = set(argv) or {'halofit', 'HMcode', 'BAO', 'native', 'harmonic', 'emulated'}
     if not torch.cuda.is_available():
         print('stage_profile: torch.cuda is not available', file=sys.stderr)
         return 1
@@ -361,6 +452,8 @@ def main(argv=()):
         native_profile(card, rng=rng)
     if 'harmonic' in names:
         harmonic_profile(card, rng=rng)
+    if 'emulated' in names:
+        emulated_profile(card, rng=rng)
     return 0
 
 

@@ -144,17 +144,23 @@ def test_invalid_rows_are_nan():
 
 def test_not_ported_yet():
     """Massive neutrinos, the hierarchies and a JAX state with them are
-    ported, and so are the analytic engines (slice 4b); the Boltzmann-code
-    wrappers and the emulators are not (slice 6)."""
+    ported, and so are the analytic engines (slice 4b) and the emulated
+    engine (slice 6a); the Boltzmann-code wrappers are not (slice 6d).
+    'emulated' with no emulator file raises the JAX package's not-found
+    CosmologyError."""
     assert Cosmology(engine='eisenstein_hu', m_ncdm=0.06, device='cpu')['N_ncdm'] == 1
     assert Cosmology(engine='eisenstein_hu', neutrino_hierarchy='normal', m_ncdm=0.1, device='cpu')['N_ncdm'] == 3
     state = jcp.Cosmology(engine='eisenstein_hu', m_ncdm=0.06).__getstate__()
     assert Cosmology.from_state(state, device='cpu')['N_ncdm'] == 1
     for engine in ('bbks', 'eisenstein_hu_nowiggle_variants'):
         assert Cosmology(engine=engine, device='cpu').engine.name == engine
-    for engine in ('class', 'camb', 'emulated'):
+    for engine in ('class', 'camb'):
         with pytest.raises(CosmologyInputError, match=f'Unknown engine {engine}'):
             Cosmology(engine=engine, device='cpu')
+    with pytest.raises(jcp.CosmologyError, match='Emulator file None not found'):
+        jcp.Cosmology(engine='emulated')
+    with pytest.raises(CosmologyError, match='Emulator file None not found'):
+        Cosmology(engine='emulated', device='cpu')
 
 
 def test_default_device(monkeypatch):

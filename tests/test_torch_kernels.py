@@ -344,3 +344,37 @@ def test_cls_batch_on_cuda_against_cpu(cuda_device, monkeypatch):
             d = (got[kind][name].cpu() - value).abs()
             assert bool(torch.isfinite(got[kind][name]).all())
             assert (d.amax(dim=-1) / value.abs().amax(dim=-1)).max().item() <= 1e-8, (kind, name)
+
+
+@pytest.mark.cuda
+def test_emulated_serving_on_cuda_against_cpu(cuda_device, tmp_path):
+    """chip_smoke's phase-21 emulator (the 'native-base' layout) at a cut
+    width served on the card against the CPU on 4 cosmologies: distances,
+    P(k), sigma8_m and xi through the FFTLog kernel (its launch count
+    grows), the Cls; each within 1e-10 of its row's max."""
+    import chip_smoke
+    from cosmoprimo_tpu_torch import Cosmology
+    from cosmoprimo_tpu_torch.emulators import EmulatedEngine, Emulator
+    fn = tmp_path / 'native_base.npy'
+    Emulator.from_state(chip_smoke.native_base_emulator_state(width=4, ellmax_cl=500)).write(fn)
+    params = {name: torch.tensor(values, dtype=torch.float64) for name, values in
+              {'logA': [2.95, 3.0, 3.05, 3.1], 'n_s': [0.95, 0.96, 0.97, 0.98], 'h': [0.64, 0.67, 0.7, 0.73],
+               'omega_b': [0.021, 0.022, 0.023, 0.024], 'omega_cdm': [0.11, 0.12, 0.13, 0.14],
+               'm_ncdm': [0.06, 0.1, 0.2, 0.3], 'w0_fld': [-1.1, -1.0, -0.9, -0.8],
+               'wa_fld': [-0.3, -0.2, -0.1, 0.0], 'tau_reio': [0.05, 0.055, 0.06, 0.065]}.items()}
+
+    def serve(device):
+        cosmo = Cosmology(engine=EmulatedEngine.read(fn), ellmax_cl=500,
+                          **{name: value.to(device) for name, value in params.items()})
+        pk = cosmo.get_fourier().pk_interpolator()
+        z = torch.tensor([0.5, 1.0], dtype=torch.float64)
+        return {'chi': cosmo.get_background().comoving_radial_distance(z), 'pk': pk(torch.tensor([0.01, 0.1]), z),
+                'sigma8': cosmo.get_fourier().sigma8_m[:, None], 'xi': pk.to_xi().xi[..., 0],
+                'tt': cosmo.get_harmonic().lensed_cl()['tt']}
+
+    launches = fftlog_kernel.launches
+    got = serve(cuda_device)
+    assert fftlog_kernel.launches > launches
+    for name, value in serve('cpu').items():
+        assert bool(torch.isfinite(got[name]).all()), name
+        assert norm_err(got[name].cpu(), value) <= 1e-10, name
