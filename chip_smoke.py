@@ -144,9 +144,29 @@ Phases, each failing the run (non-zero exit) if its check fails:
     and a jaxcapse TT network, converted by the port's converters, served
     at B = 4096, the first 32 rows against the CPU at 1e-10, their walls.
 
+23. training on the card (slice 6b), through the port's CLI
+    (emulators/train/train_boltzmann.py) at the 'native-base' recipe:
+    (a) ``--todo sample --section thermodynamics --stop 256`` on the native
+    engine, the 256 points in one batch-first call: samples/s, and 8 of the
+    points against the native engine on the CPU at 1e-10 of each value;
+    (b) ``--todo fit`` with the recipe's schedule and ``--epochs 200``: the
+    validation loss of every net falls; the file served through
+    Cosmology(engine=EmulatedEngine.read(path)) at B = 4096, finite;
+    (c) the fourier section at full width: 4096 samples through
+    ``--engine eisenstein_hu_nowiggle_variants`` (the native engine at the
+    recipe's k grid, to 1e2 h/Mpc, would not fit the time limit), the
+    recipe's 64 x 5 silu nets on the 422-point reference spectrum and the
+    422 x 30 tables behind its FourierNormOperation, ``--epochs 50``:
+    steps/s, epochs/s, the wall of each stage and the peak memory; served
+    at B = 4096 (P(k) and sigma8_m, the kernel), the first 32 rows against
+    the CPU at 1e-10 of each row's max;
+    (d) 20 Adam steps from one numpy-seeded initialization on the same
+    batches, on the card and on the CPU: every parameter within 1e-9 of
+    its tensor's max.
+
 Each of phases 14-17 prints its wall (median of 5 after a warm-up). The
-kernel's launches in the main-path runs of phases 4-8, 11, 14, 15, 18 and
-21 are summed into the "kernels" line. The last line is {"ok": true, "device":
+kernel's launches in the main-path runs of phases 4-8, 11, 14, 15, 18,
+21 and 23 are summed into the "kernels" line. The last line is {"ok": true, "device":
 {...}}. Imports nothing of JAX.
 """
 
@@ -249,6 +269,15 @@ NATIVE_BASE_SECTIONS = {
                 'silu', False),
     'harmonic': ({**NATIVE_BASE, 'm_ncdm': (0.0, 0.6), 'tau_reio': (0.02, 0.12)}, (64,) * 6, 'silu', False),
 }
+# slice 6b: training on the card, phase 23
+N_TRAIN_THERMO = 256
+TRAIN_CHECK = 8
+TRAIN_RTOL = 1e-10         # native thermodynamics samples, card against CPU
+THERMO_EPOCHS = 200
+N_TRAIN_FOURIER = 4096
+FOURIER_EPOCHS = 50
+ADAM_STEPS = 20
+ADAM_RTOL = 1e-9           # parameters after ADAM_STEPS, card against CPU
 CL_NORM = ("v / jnp.exp(X['logA'] - 3.) / jnp.exp(-2 * X['tau_reio'])",
            "v * jnp.exp(X['logA'] - 3.) * jnp.exp(-2 * X['tau_reio'])")
 
@@ -335,7 +364,7 @@ def native_base_emulator_state(seed=0, width=1, ellmax_cl=ELLMAX_EMU):
                                                         yshape, ylimits, yoperations, batch_norm)
 
     background = Background.__getstate__(DefaultBackground(fiducial.engine))
-    fixed['background.z'] = background.pop('z').numpy()
+    fixed['background.z'] = np.asarray(background.pop('z'))
     for name, table in background.items():
         add('background', name, table.shape, _band(table.numpy()))
     for name, value in {'rs_drag': 100.0, 'z_drag': 1060.0, 'rs_star': 98.0, 'z_star': 1090.0,
@@ -1312,6 +1341,166 @@ def converted_nets(rng, card):
         shutil.rmtree(directory, ignore_errors=True)
 
 
+def fit_summary(emulator):
+    """(steps, epochs, wall s of each stage summed over the nets, the nets
+    whose validation loss did not fall) of a fitted emulator's MLP
+    engines."""
+    steps = epochs = 0
+    stages, flat = [], []
+    for name, engine in emulator.engines.items():
+        history = engine.history
+        steps += sum(h['steps'] for h in history)
+        epochs += sum(h['epochs'] for h in history)
+        for i, h in enumerate(history):
+            stages += [0.0] * (i + 1 - len(stages))
+            stages[i] += h['seconds']
+        losses = [loss for h in history for loss in h['losses']]
+        if not np.isfinite(losses).all() or min(losses) >= losses[0]:
+            flat.append(name)
+    return steps, epochs, stages, flat
+
+
+def adam_card_vs_cpu(device, steps=ADAM_STEPS, seed=0, nin=8, nhidden=(64,) * 5, nout=422, batch=256):
+    """``steps`` Adam steps of a 64 x 5 silu net (the recipe's fourier
+    width) from one numpy-seeded initialization, on the same contiguous
+    batches, on ``device`` and on the CPU: the worst parameter's max|d| /
+    max|CPU| over its tensor."""
+    from cosmoprimo_tpu_torch.emulators.mlp import MLP, flax_variables, load_flax_variables, make_adam, make_train_step
+    rng = np.random.default_rng(seed)
+    weights, stats = mlp_weights(rng, [nin, *nhidden, nout], 'silu', False)
+    X, Y = rng.uniform(size=(4 * batch, nin)), rng.normal(size=(4 * batch, nout))
+    out = {}
+    for dev in (device, 'cpu'):
+        model = load_flax_variables(MLP(nin, nhidden + (nout,), ('silu',) * len(nhidden), device=dev), weights, stats)
+        step = make_train_step(model, make_adam(model, 1e-3), 1e-3)
+        x, y = torch.from_numpy(X).to(dev), torch.from_numpy(Y).to(dev)
+        model.train()
+        for i in range(steps):
+            sl = slice(batch * (i % 4), batch * (i % 4 + 1))
+            step(x[sl], y[sl])
+        out[str(dev)] = flax_variables(model)[0]
+    got, ref = out[str(device)], out['cpu']
+    return max(float(np.max(np.abs(got[layer][leaf] - ref[layer][leaf])) / np.max(np.abs(ref[layer][leaf])))
+               for layer in ref for leaf in ref[layer])
+
+
+def training(fftlog_kernel, rng, card):
+    """Phase 23: sample, fit and serve the 'native-base' recipe through the
+    port's CLI on the card (see the module docstring). Returns the kernel's
+    launches in the fourier serve."""
+    import os
+    import shutil
+    import tempfile
+    from cosmoprimo_tpu_torch import Cosmology
+    from cosmoprimo_tpu_torch.emulators import EmulatedEngine, get_calculator
+    from cosmoprimo_tpu_torch.emulators.samples import CHUNK_SIZE
+    from cosmoprimo_tpu_torch.emulators.train import train_boltzmann
+    from cosmoprimo_tpu_torch.fiducial import DESI
+    directory = tempfile.mkdtemp()
+    try:
+        # (a) sample the thermodynamics on the native engine, batch-first
+        thermo = ['--recipe', 'native-base', '--section', 'thermodynamics', '--outdir', directory]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples = train_boltzmann.main(['--todo', 'sample', '--stop', str(N_TRAIN_THERMO)] + thermo)
+        sample_s = time.perf_counter() - t0
+        names = samples.columns('Y.*')
+        check(samples.size == N_TRAIN_THERMO and bool(samples.isfinite().all()),
+              'the native thermodynamics samples are not all finite')
+        print(f'train (a): native-base thermodynamics on the native engine: {samples.size} samples of '
+              f'{len(names)} quantities in {sample_s:.2f} s ({samples.size / sample_s:.1f} samples/s; chunks of '
+              f'{CHUNK_SIZE}) on {card}', flush=True)
+        points = {name[2:]: torch.from_numpy(samples[name][:TRAIN_CHECK]) for name in samples.columns('X.*')}
+        ref = get_calculator(DESI(engine='native', device='cpu'), section=['thermodynamics'])(**points)
+        errs = {name: float(np.max(np.abs(samples[name][:TRAIN_CHECK] - ref[name[2:]].numpy())
+                                   / np.abs(ref[name[2:]].numpy()))) for name in names}
+        worst = max(errs, key=errs.get)
+        print(f'train (a): {TRAIN_CHECK} samples, card vs CPU: worst {worst} {errs[worst]:.3e} (bar {TRAIN_RTOL:g})',
+              flush=True)
+        check(errs[worst] <= TRAIN_RTOL, 'the native thermodynamics samples disagree between the card and the CPU')
+
+        # (b) fit with the recipe's schedule, serve the file
+        t0 = time.perf_counter()
+        emulator = train_boltzmann.main(['--todo', 'fit', '--epochs', str(THERMO_EPOCHS)] + thermo)
+        fit_s = time.perf_counter() - t0
+        steps, epochs, stages, flat = fit_summary(emulator)
+        print(f'train (b): {len(emulator.engines)} nets 10 x 5 tanh, {steps} Adam steps and {epochs} epochs in '
+              f'{fit_s:.2f} s ({steps / fit_s:.1f} steps/s, {epochs / fit_s:.1f} epochs/s); stages '
+              f'{", ".join(f"{s:.2f}" for s in stages)} s; best validation loss '
+              f'{max(min(h["best_loss"] for h in e.history) for e in emulator.engines.values()):.3e} (worst net) on '
+              f'{card}', flush=True)
+        check(not flat, f'the validation loss did not fall for {flat}')
+        box = NATIVE_BASE_SECTIONS['thermodynamics'][0]
+        served = Cosmology(engine=EmulatedEngine.read(os.path.join(directory, 'native-base_thermodynamics',
+                                                                    'emulator.npy')),
+                           **{name: torch.from_numpy(rng.uniform(*limits, B_EMU)).to(DEVICE)
+                              for name, limits in box.items()}).get_thermodynamics()
+        rs_drag = served.rs_drag
+        check(rs_drag.shape == (B_EMU,) and bool(torch.isfinite(rs_drag).all()),
+              'the trained thermodynamics emulator does not serve finite values')
+        print(f'train (b): served at B={B_EMU}: rs_drag {float(rs_drag.min()):.3f} ... {float(rs_drag.max()):.3f} '
+              f'Mpc/h', flush=True)
+
+        # (c) the fourier section at full width
+        fourier = ['--recipe', 'native-base', '--section', 'fourier', '--engine', 'eisenstein_hu_nowiggle_variants',
+                   '--outdir', directory, '--chunk-size', str(N_TRAIN_FOURIER)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples = train_boltzmann.main(['--todo', 'sample', '--stop', str(N_TRAIN_FOURIER)] + fourier)
+        sample_s = time.perf_counter() - t0
+        gbytes = sum(value.nbytes for value in samples.values()) / 1e9
+        print(f'train (c): native-base fourier on eisenstein_hu_nowiggle_variants: {samples.size} samples '
+              f'({gbytes:.2f} GB) in {sample_s:.2f} s ({samples.size / sample_s:.1f} samples/s, one call) on {card}',
+              flush=True)
+        del samples
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        emulator = train_boltzmann.main(['--todo', 'fit', '--epochs', str(FOURIER_EPOCHS)] + fourier)
+        fit_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps, epochs, stages, flat = fit_summary(emulator)
+        widths = sorted({int(np.prod(e.yshape)) for e in emulator.engines.values()})
+        train_s = sum(stages)
+        print(f'train (c): {len(emulator.engines)} nets 64 x 5 silu (outputs {widths}), {steps} Adam steps and '
+              f'{epochs} epochs: fit {fit_s:.2f} s in all (file, operations, nets), the nets {train_s:.2f} s '
+              f'({steps / train_s:.1f} steps/s, {epochs / train_s:.1f} epochs/s); stages '
+              f'{", ".join(f"{s:.2f}" for s in stages)} s; peak memory {peak_gb:.2f} GB on {card}', flush=True)
+        check(not flat, f'the validation loss did not fall for {flat}')
+        engine = EmulatedEngine.read(os.path.join(directory, 'native-base_fourier', 'emulator.npy'))
+        params = emulator_params(rng, B_EMU, names=list(NATIVE_BASE_SECTIONS['fourier'][0]))
+        k = np.geomspace(1e-3, 1.0, 64)
+
+        def serve(values, device):
+            cosmo = Cosmology(engine=engine, device=device,
+                              **{name: torch.from_numpy(value).to(device) for name, value in values.items()})
+            fo = cosmo.get_fourier()
+            return {'pk': fo.pk_interpolator()(k, torch.from_numpy(DESI_Z).to(device)), 'sigma8': fo.sigma8_m[..., None]}
+
+        fftlog_kernel.launches = 0
+        out = serve(params, DEVICE)
+        torch.cuda.synchronize()
+        launches = fftlog_kernel.launches
+        check(launches > 0, 'the trained fourier emulator did not launch the FFTLog kernel')
+        check(all(bool(torch.isfinite(value).all()) for value in out.values()),
+              'the trained fourier emulator does not serve finite values')
+        ref = serve({name: value[:N_COMPARE] for name, value in params.items()}, 'cpu')
+        errs = {name: rows_err(out[name][:N_COMPARE], value) for name, value in ref.items()}
+        wall = wall_ms(lambda: serve(params, DEVICE))
+        print(f'train (c): served at B={B_EMU} in {wall:.3f} ms (median of 5 after a warm-up), kernel launches '
+              f'{launches}; card vs CPU, first {N_COMPARE} rows: pk {errs["pk"]:.3e}, sigma8 {errs["sigma8"]:.3e} '
+              f'(bar {EMU_RTOL:g})', flush=True)
+        check(max(errs.values()) <= EMU_RTOL, 'the trained fourier emulator disagrees between the card and the CPU')
+
+        # (d) Adam steps, card against CPU
+        err = adam_card_vs_cpu(DEVICE)
+        print(f'train (d): {ADAM_STEPS} Adam steps of a 64 x 5 silu net (8 -> 422) from one init, card vs CPU: '
+              f'{err:.3e} of each tensor\'s max (bar {ADAM_RTOL:g})', flush=True)
+        check(err <= ADAM_RTOL, 'Adam steps disagree between the card and the CPU')
+        return launches
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
 def kernel_bound_ms(x, args):
     """The least time the card could take for one call of the core on ``x``
     (rows, size) with ``args``: each input read once and the output written
@@ -1555,6 +1744,11 @@ def main():
     launches += emulator_serving(fftlog_kernel, rng, card)
     converted_nets(rng, card)
     print(f'phases 21-22: {time.perf_counter() - t0:.1f} s', flush=True)
+
+    # 23. training on the card
+    t0 = time.perf_counter()
+    launches += training(fftlog_kernel, rng, card)
+    print(f'phase 23: {time.perf_counter() - t0:.1f} s', flush=True)
 
     print(json.dumps({'kernels': [{
         'name': 'fftlog_core', 'route': 'cuda', 'source': 'cosmoprimo_tpu_torch/csrc/fftlog_core.cu',

@@ -1,13 +1,15 @@
-"""Emulator toolkit, serving (cosmoprimo_tpu/emulators/): MLP / Taylor /
-Point emulators read from their files and served as an engine
-('emulated', and the pretrained 'capse', 'cosmopower_bolliet2023',
-'emu_camb_mnu_w_wa_cmb' and 'cosmopower_jense2024' entry points), the
-operation algebra, the converters of public weight formats, and the
-Fourier/Harmonic norm operations.
+"""Emulator toolkit (cosmoprimo_tpu/emulators/): sample a calculator or a
+Cosmology (:func:`get_calculator`, the samplers), fit MLP / Taylor / Point
+emulators of its outputs (:class:`Emulator`; the MLP on the CUDA card),
+and serve them back as an engine ('emulated', and the pretrained 'capse',
+'cosmopower_bolliet2023', 'emu_camb_mnu_w_wa_cmb' and
+'cosmopower_jense2024' entry points); the operation algebra, the
+converters of public weight formats, and the Fourier/Harmonic norm
+operations.
 
-Batch-first: an emulator predicts a batch of cosmologies in one call. The
-sampling and training half (``get_calculator``, the samplers, the MLP fit)
-is not ported yet (ROADMAP slice 6b).
+Batch-first: a calculator takes each parameter as a (n,) tensor and
+returns each output as (n,) + its shape; an emulator predicts a batch of
+cosmologies in one call.
 """
 
 from math import comb
@@ -16,16 +18,92 @@ import numpy as np
 import torch
 
 from ..ops import cubic_eval_rows, natural_cubic_coeffs_rows
-from .base import (BaseEmulatorEngine, Emulator, EmulatedCalculator, PointEmulatorEngine, batch_vmap, find_names,
-                   get_engine, make_list)
+from .base import (BaseEmulatorEngine, Emulator as _BaseEmulator, EmulatedCalculator, PointEmulatorEngine,
+                   batch_vmap, find_names, get_engine, make_list)
 from .operations import (ArcsinhOperation, ChebyshevOperation, FourierUnitOperation, Log10Operation, NormOperation,
                          Operation, PCAOperation, ScaleOperation, SplitDerivedOperation, _device_of, _per_row,
                          get_operation, register_operation)
-from .samples import CalculatorComputationError, Samples
+from .samples import (BaseSampler as _BaseSampler, CalculatorComputationError, DiffSampler as _DiffSampler,
+                      GridSampler as _GridSampler, InputSampler as _InputSampler, QMCSampler as _QMCSampler, Samples)
 from .mlp import MLPEmulatorEngine
 from .taylor import TaylorEmulatorEngine
 from .emulated import (CAPSEEngine, CambMnuW0WaCMBEngine, CosmopowerBolliet2023Engine, CosmopowerJense2024Engine,
                        EmulatedEngine)
+
+
+def get_calculator(cosmo, section=None):
+    """Turn a Cosmology into a batch-first calculator ``f(**params) ->
+    {'<section>.<name>': batch + shape}`` of section states
+    ('background.comoving_radial_distance', 'fourier.pk.delta_cb.delta_cb',
+    ...), read through the emulated sections' ``__getstate__``, for
+    sampling and training; the cosmology's fixed grids ('fourier.k', ...)
+    are expanded to the batch. Parameters are tensors of one batch shape
+    (or numbers); a CosmologyError becomes a CalculatorComputationError.
+    The calculator's ``device`` is the cosmology's. Anything else is
+    returned as it is."""
+    from ..cosmology import Cosmology, CosmologyError
+    from . import emulated
+
+    if not isinstance(cosmo, Cosmology):
+        return cosmo
+
+    section_names = make_list(section if section is not None else list(cosmo.engine._Section_classes))
+    order = ['harmonic', 'fourier', 'transfer', 'perturbations', 'primordial', 'thermodynamics', 'background']
+    section_names = [s for s in order if s in section_names] + [s for s in section_names if s not in order]
+    device = cosmo.device
+
+    def calculator(**params):
+        toret = {}
+        try:
+            clone = cosmo.clone(**params)
+            batch = clone['h'].shape
+            for section_name in section_names:
+                section = getattr(clone, f'get_{section_name}')()
+                Section = getattr(emulated, section_name.capitalize(), None)
+                state = {}
+                if Section is not None and hasattr(Section, '__getstate__'):
+                    state = Section.__getstate__(section)
+                for name, value in state.items():
+                    if value is None:
+                        continue
+                    if not isinstance(value, torch.Tensor):   # a grid shared by the batch
+                        value = torch.as_tensor(np.asarray(value), dtype=torch.float64, device=device)
+                        value = value.expand(batch + value.shape)
+                    toret[f'{section_name}.{name}'] = value
+        except CosmologyError as exc:
+            raise CalculatorComputationError from exc
+        return toret
+
+    calculator.device = device
+    return calculator
+
+
+class Emulator(_BaseEmulator):
+    """Emulator accepting a Cosmology directly as calculator."""
+
+    def _classify_calculator(self, calculator, params=None):
+        return super()._classify_calculator(get_calculator(calculator), params=params)
+
+
+class BaseSampler(_BaseSampler):
+    def __init__(self, calculator, *args, **kwargs):
+        super().__init__(get_calculator(calculator), *args, **kwargs)
+
+
+class InputSampler(BaseSampler, _InputSampler):
+    pass
+
+
+class GridSampler(BaseSampler, _GridSampler):
+    pass
+
+
+class DiffSampler(BaseSampler, _DiffSampler):
+    pass
+
+
+class QMCSampler(BaseSampler, _QMCSampler):
+    pass
 
 
 def mask_subsample(size, factor=1., seed=42):
@@ -248,7 +326,8 @@ class FourierNormOperation(Operation):
         self.__dict__.update(state)
 
 
-__all__ = ['Emulator', 'EmulatedCalculator', 'BaseEmulatorEngine', 'PointEmulatorEngine', 'MLPEmulatorEngine',
+__all__ = ['Emulator', 'EmulatedCalculator', 'get_calculator', 'BaseSampler', 'InputSampler', 'GridSampler',
+           'DiffSampler', 'QMCSampler', 'BaseEmulatorEngine', 'PointEmulatorEngine', 'MLPEmulatorEngine',
            'TaylorEmulatorEngine', 'Operation', 'ScaleOperation', 'NormOperation', 'Log10Operation',
            'ArcsinhOperation', 'PCAOperation', 'ChebyshevOperation', 'SplitDerivedOperation',
            'FourierUnitOperation', 'HarmonicNormOperation', 'FourierNormOperation', 'Samples',

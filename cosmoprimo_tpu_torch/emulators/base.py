@@ -1,21 +1,26 @@
-"""Emulator serving and files (cosmoprimo_tpu/emulators/base.py): the
-per-quantity engines' registry and predictions through their x/y operation
-chains, the :class:`Emulator` that gathers them, and its .npy / .h5 files,
-in the JAX package's format both ways.
+"""Emulator orchestration and files (cosmoprimo_tpu/emulators/base.py):
+the per-quantity engines' registry, their fits and predictions through
+their x/y operation chains, the :class:`Emulator` that classifies a
+calculator's outputs, attaches samples, fits one engine per varied output
+and serves them, and its .npy / .h5 files, in the JAX package's format
+both ways.
 
 Batch-first: a prediction takes parameters of a batch shape (tensors, or
 Python numbers) and returns batch + the quantity's shape. The operation
 expressions describe one cosmology, so each engine evaluates its chain
-under ``torch.func.vmap`` over the batch (:func:`batch_vmap`); that also
-composes with ``torch.func.jvp`` / ``jacfwd``. The sample-and-fit half
-(``Emulator.set_samples``, ``fit``, the engines' ``_fit_no_operation``) is
-not ported yet (ROADMAP slice 6b).
+under ``torch.func.vmap`` over the batch (:func:`batch_vmap`), when it fits
+as when it predicts; that also composes with ``torch.func.jvp`` /
+``jacfwd``. The emulator-level typed operations take the whole batch.
+Fits run on the emulator's ``device``: the CUDA card unless the caller
+names another.
 """
 
 import copy
 import fnmatch
+import inspect
 import json
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -24,7 +29,7 @@ from .. import utils
 from ..parallel.distributed import get_comm
 from .operations import (Operation, _DeviceCached, _device_of, _to_device, canonical_device, get_operation,
                          in_forward_transform)
-from .samples import _import_h5py
+from .samples import Samples, _import_h5py, calculator_device, resolve_device
 
 
 def make_list(li):
@@ -83,6 +88,16 @@ def _params_device(params):
     return canonical_device('cuda')
 
 
+def map_rows(func, *arrays, device):
+    """``func`` of one row of each of ``arrays`` (numpy, leading axis the
+    rows), under ``torch.func.vmap`` on ``device``, rows chunked as in
+    :meth:`BaseEmulatorEngine.predict`: numpy, rows + the output's shape."""
+    tensors = [torch.as_tensor(np.asarray(array, dtype=np.float64), device=device) for array in arrays]
+    size = max(int(np.prod(tensors[0].shape[1:])), 1)
+    out = batch_vmap(func, batch_size=max(PREDICT_CHUNK_BYTES // (8 * size), 1))(*tensors)
+    return out.cpu().numpy()
+
+
 _ENGINE_REGISTRY = {}
 
 
@@ -123,9 +138,37 @@ class BaseEmulatorEngine(_DeviceCached):
         self.yoperations = [get_operation(op) for op in make_list(yoperation)]
         self.attrs = dict(attrs or {})
 
-    def initialize(self, params, comm=None):
+    def initialize(self, params, comm=None, device=None):
+        """Set the input names, the communicator and the device the fit
+        runs on (None: the CUDA card)."""
         self.params = list(params)
         self.comm = comm if comm is not None else get_comm()
+        self.device = device
+
+    def get_default_samples(self, calculator, params, **kwargs):
+        raise NotImplementedError
+
+    def fit(self, X, Y, attrs, **kwargs):
+        """Initialize the y then the x operations on the samples (numpy X
+        (n, nparams), Y (n,) + yshape), apply them row by row under
+        ``torch.func.vmap`` on the engine's device (the y operations see
+        each row's parameters as ``X``), and fit the flattened rows."""
+        X, Y = np.asarray(X), np.asarray(Y)
+        device = resolve_device(self.device)
+        for operation in self.yoperations:
+            operation.initialize(Y)
+            Y = map_rows(lambda y, x: operation(y, X={name: x[i] for i, name in enumerate(self.params)}), Y, X,
+                         device=device)
+        for operation in self.xoperations:
+            operation.initialize(X)
+            X = map_rows(operation, X, device=device)
+        self.xshape, self.yshape = X.shape[1:], Y.shape[1:]
+        X, Y = X.reshape(len(X), -1), Y.reshape(len(Y), -1)
+        self._fit_no_operation(X, Y, attrs, **kwargs)
+        self.__dict__.pop('_device_cache', None)
+
+    def _fit_no_operation(self, X, Y, attrs):
+        raise NotImplementedError
 
     def _operations(self):
         return self.xoperations + self.yoperations
@@ -218,6 +261,14 @@ class PointEmulatorEngine(BaseEmulatorEngine):
     name = 'point'
     _tensor_attrs = ('point',)
 
+    def get_default_samples(self, calculator, params, **kwargs):
+        from .samples import GridSampler
+        sampler = GridSampler(calculator, params, device=self.device)
+        return sampler.run(**kwargs)
+
+    def _fit_no_operation(self, X, Y, attrs):
+        self.point = np.asarray(Y[0])
+
     def _predict_no_operation(self, X):
         return self._on(X.device)['point']
 
@@ -228,22 +279,175 @@ class PointEmulatorEngine(BaseEmulatorEngine):
         return state
 
 
+def _deep_eq(a, b):
+    try:
+        return np.array_equal(np.asarray(a), np.asarray(b))
+    except Exception:
+        return a == b
+
+
+def _numpy(value):
+    return value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else value
+
+
 class Emulator(object):
-    """Serve an emulated calculator ``f(**params) -> dict of arrays``: the
-    fixed outputs, one engine per varied output, and the emulator-level
-    x/y operations.
+    """Emulate a batch-first calculator ``f(**params) -> dict of arrays``:
+    classify its varied and fixed outputs, fit one engine per varied
+    output, serve predictions through the operation chains.
 
     The emulator-level operations are batch-first (see
     :class:`~cosmoprimo_tpu_torch.emulators.operations.SplitDerivedOperation`):
     ``X``'s values have the batch shape, each predicted value leads with it
-    and a fixed value has none.
+    and a fixed value has none. Samples are taken on ``device`` (None: the
+    calculator's, else the CUDA card); the operations and the fits run on
+    ``device`` (None: the CUDA card).
     """
 
-    def __init__(self, xoperation=None, yoperation=None, comm=None):
+    def __init__(self, calculator=None, samples=None, engine=None, xoperation=None, yoperation=None, comm=None,
+                 device=None, **kwargs):
         self.comm = comm if comm is not None else get_comm()
+        self.device = device
         self.xoperations = [get_operation(op) for op in make_list(xoperation)]
         self.yoperations = [get_operation(op) for op in make_list(yoperation)]
         self.engines, self.defaults, self.fixed = {}, {}, {}
+        self._input_engines, self._init_engines, self._samples = {}, {}, {}
+        if engine is not None:
+            self.set_engine(engine)
+        if calculator is not None:
+            self._calculator, self._params, self._varied, self._fixed = self._classify_calculator(
+                calculator, params=kwargs.get('params', None))
+        if samples is not None:
+            self.set_samples(samples=samples, **{k: v for k, v in kwargs.items() if k != 'params'})
+
+    # ------------------------------------------------------------- setup
+    def set_engine(self, engine, update=True):
+        if not hasattr(engine, 'items'):
+            engine = {'*': engine}
+        engines = {key: get_engine(eng) for key, eng in engine.items()}
+        if update:
+            self._input_engines.update(engines)
+        else:
+            self._input_engines = engines
+
+    @staticmethod
+    def _sort_varied_fixed(samples, subsample=None):
+        varied, fixed = {}, {}
+        index = slice(None)
+        if subsample is not None:
+            size = len(next(iter(samples.values())))
+            rng = np.random.RandomState(seed=42)
+            index = rng.choice(size, min(subsample, size), replace=False)
+        for name, values in samples.items():
+            values = np.asarray(values)[index]
+            if all(_deep_eq(value, values[0]) for value in values):
+                fixed[name] = values[0]
+            else:
+                varied[name] = values[0].shape
+        return varied, fixed
+
+    def _classify_calculator(self, calculator, params=None):
+        """(calculator, params, varied, fixed) from one call at three points
+        drawn in ``params``' boxes, the JAX package's RandomState(42)
+        draws, as a batch of 3."""
+        from .samples import evaluate_rows
+        params = dict(params)
+        sig = inspect.signature(calculator)
+        self.defaults = {}
+        for param in sig.parameters.values():
+            if param.kind == param.POSITIONAL_OR_KEYWORD and param.default is not param.empty:
+                self.defaults[param.name] = param.default
+        rng = np.random.RandomState(seed=42)
+        rows = [{param: rng.uniform(*limits) for param, limits in params.items()} for _ in range(3)]
+        points = {param: np.array([row[param] for row in rows]) for param in params}
+        state = evaluate_rows(calculator, points, calculator_device(calculator, self.device))
+        varied, fixed = self._sort_varied_fixed(state)
+        if not varied:
+            raise ValueError('Found no varying quantity in provided calculator')
+        return calculator, params, varied, fixed
+
+    def set_samples(self, engine=None, samples=None, params=None, calculator=None, **kwargs):
+        """Attach samples (computing them via the engines' default samplers
+        if not provided) and instantiate per-quantity engines. The
+        emulator-level y operations are initialized on the samples and
+        applied to the whole batch on the emulator's device, in their
+        forward direction; then the x operations. Returns (samples,
+        processed samples)."""
+        if engine is not None:
+            self.set_engine(engine)
+
+        if samples is None:
+            if calculator is not None:
+                calculator, params, varied, fixed = self._classify_calculator(calculator, params=params)
+            else:
+                calculator, params, varied, fixed = (getattr(self, name, None) for name in
+                                                     ('_calculator', '_params', '_varied', '_fixed'))
+            engines = expand_dict(self._input_engines, list(varied))
+            for name, eng in engines.items():
+                if eng is None:
+                    raise ValueError(f'Engine not specified for varying attribute {name}')
+                eng.initialize(params=params, comm=self.comm, device=self.device)
+                samples = eng.get_default_samples(calculator, params=params, **kwargs)
+                break
+        else:
+            samples = samples if isinstance(samples, Samples) else Samples.read(samples)
+            if params is None:
+                params = {name[2:]: None for name in samples.columns('X.*')}
+            varied, fixed = self._sort_varied_fixed(
+                {name[2:]: samples[name] for name in samples.columns('Y.*')}, subsample=10)
+
+        notfinite = [name for name, value in samples.items() if not np.isfinite(np.asarray(value)).all()]
+        if notfinite:
+            warnings.warn(f'{notfinite} are not finite')
+
+        # global x/y operations, batch-first
+        X = {name[2:]: np.asarray(samples[name]) for name in samples.columns('X.*')}
+        Y = {name[2:]: np.asarray(samples[name]) for name in samples.columns('Y.*')}
+        if self.yoperations or self.xoperations:
+            device = resolve_device(self.device)
+        for operation in self.yoperations:
+            operation.initialize({**fixed, **Y}, X=X)
+            on = {name: _to_device(value, device) for name, value in {**fixed, **Y}.items()}
+            out = operation(on, X={name: _to_device(value, device) for name, value in X.items()})
+            Y = {name: _numpy(value) for name, value in out.items() if name not in fixed}
+        for operation in self.xoperations:
+            operation.initialize(X)
+            X = {name: _numpy(value) for name, value in
+                 operation({name: _to_device(value, device) for name, value in X.items()}).items()}
+
+        self.fixed.update(fixed)
+        params = list(X)
+        processed = Samples({**{'X.' + name: X[name] for name in X}, **{'Y.' + name: Y[name] for name in Y}},
+                            attrs=dict(samples.attrs))
+        varied, _fixed2 = self._sort_varied_fixed(Y, subsample=10)
+        self.fixed.update(_fixed2)
+
+        engines = expand_dict(self._input_engines, list(varied))
+        for name, eng in engines.items():
+            if eng is None:
+                raise ValueError(f'Engine not specified for varying attribute {name}')
+            eng = eng.copy()
+            eng.initialize(params=params, comm=self.comm, device=self.device)
+            self._init_engines[name] = eng
+            self._samples[name] = processed
+        return samples, processed
+
+    # ------------------------------------------------------------- fit / predict
+    def fit(self, name=None, **kwargs):
+        """Fit the engine of each varied output matching ``name`` (a
+        pattern; all by default) on its samples; ``kwargs`` go to the
+        engines' fits."""
+        names = find_names(list(self._samples.keys()), name if name is not None else '*')
+        for name in names:
+            engine = self._init_engines[name].copy()
+            samples = self._samples[name]
+            X = np.column_stack([samples['X.' + p] for p in engine.params])
+            Y = np.asarray(samples['Y.' + name])
+            if not np.isfinite(X).all():
+                raise ValueError('X is not finite')
+            if not np.isfinite(Y).all():
+                raise ValueError(f'{name} is not finite')
+            engine.fit(X, Y, dict(samples.attrs), **kwargs)
+            self.engines[name] = engine
 
     @property
     def params(self):
@@ -303,6 +507,8 @@ class Emulator(object):
 
     def __setstate__(self, state):
         self.comm = get_comm()
+        self.device = None
+        self._input_engines, self._init_engines, self._samples = {}, {}, {}
         self.engines = {name: BaseEmulatorEngine.from_state(s) for name, s in state['engines'].items()}
         self.xoperations = [Operation.from_state(s) for s in state.get('xoperations', [])]
         self.yoperations = [Operation.from_state(s) for s in state.get('yoperations', [])]

@@ -290,9 +290,10 @@ class Background(BaseBackground):
 
     def __getstate__(self):
         """The tables on the default background z-grid, each batch + its
-        shape ((N_ncdm, nz) for the ncdm tables), and that grid as 'z'."""
-        z = torch.from_numpy(get_default_z_callable('background')).to(self.device)
-        state = {'z': z}
+        shape ((N_ncdm, nz) for the ncdm tables), and that grid as 'z'
+        (numpy, shared by the batch, as the Fourier state's grids)."""
+        state = {'z': get_default_z_callable('background')}
+        z = torch.from_numpy(state['z']).to(self.device)
         for name in _BACKGROUND_TABLES:
             try:
                 value = getattr(self, name)(z)
@@ -320,8 +321,11 @@ class Thermodynamics(BaseSection):
         self.__setstate__(engine._predict(section='thermodynamics'))
 
     def __getstate__(self):
+        """The scalars this section has, each the batch shape: those it
+        holds as '_<name>' (the analytic engines) or defines as properties
+        (the native engine computes them from its recombination history)."""
         return {name: getattr(self, name) for name in ['rs_drag', 'z_drag', 'rs_star', 'z_star', 'YHe']
-                if hasattr(self, '_' + name)}
+                if hasattr(self, '_' + name) or isinstance(getattr(type(self), name, None), property)}
 
     def __setstate__(self, state):
         batch = self.engine['h'].shape

@@ -2,10 +2,10 @@
 Planck 2018, BOSS, Uchuu, the DESI DR2 w0waCDM best fit and the tabulated
 DESI background.
 
-The AbacusSummit parameter table and the DESI background table are read in
-place from the JAX package's data folder (``cosmoprimo_tpu/data/
-abacus_cosmologies.csv``, the published AbacusSummit table, and
-``desi.dat``); reading the files imports nothing of that package.
+The AbacusSummit parameter table (``data/abacus_cosmologies.csv``, the
+published AbacusSummit table) and the DESI background table
+(``data/desi.dat``) are the port's own, byte-identical copies of the JAX
+package's files.
 Every factory takes ``device``; by default the cosmology is built on the
 CUDA card (see :class:`~cosmoprimo_tpu_torch.cosmology.Cosmology`).
 """
@@ -20,7 +20,7 @@ import torch
 from . import constants
 from .cosmology import Cosmology, get_engine
 
-_dir_data = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'cosmoprimo_tpu', 'data')
+_dir_data = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'data')
 
 
 def Uchuu(name='Planck2015', engine=None, extra_params=None, device=None, **params):

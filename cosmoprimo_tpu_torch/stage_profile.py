@@ -1,9 +1,9 @@
 """Per-stage device profile of the halofit, HMcode, BAO-template and native
 Boltzmann paths on one CUDA card:
 
-    python3 -m cosmoprimo_tpu_torch.stage_profile [halofit] [HMcode] [BAO] [native] [harmonic] [emulated]
+    python3 -m cosmoprimo_tpu_torch.stage_profile [halofit] [HMcode] [BAO] [native] [harmonic] [emulated] [train]
 
-(all six without an argument; 'emulated' from the repository's root).
+(all seven without an argument; 'emulated' from the repository's root).
 
 For each stage (set-up, linear P(k), the sigma^2 matmul, halofit's Newton
 block, HMcode's growth ODE, dewiggle and one-halo NFW tensor, the whole
@@ -32,8 +32,12 @@ eagerly on a slice), the sources with graphs, the projection beside its
 bound, Limber, the tensors and the lensing. The emulated path (chip_smoke's
 phase 21: the 'native-base' layout at B = 4096) by section, with the
 FourierNormOperation and the FFTLog stages, and the converted cosmopower
-release of phase 22. Parameters
-are drawn from a seed. Informational only: it checks nothing, and prints the
+release of phase 22. The training path (train: chip_smoke's phase-23 nets,
+the 'native-base' fourier nets 64 x 5 silu on 4096 samples with 12 660 and
+422 outputs, and the thermodynamics nets 10 x 5 tanh on 256): the device
+ms and launches of one Adam step and of one validation, and one epoch
+against its wall (the host's gaps). Parameters and data are drawn from a
+seed. Informational only: it checks nothing, and prints the
 card's name and power limit.
 """
 
@@ -406,8 +410,60 @@ def emulated_profile(card, n=4096, rng=None):
             print(f'  {ms:9.3f} ms  x{count:<5d} {name}', flush=True)
 
 
+def train_profile(card, rng=None):
+    """Print the fits of chip_smoke's phase 23 by step, on synthetic data
+    of their shapes: for each net, one Adam step at the first stage's
+    batch (the recipes' first batch fraction), one validation on 10% of
+    the rows, and one epoch (the steps and the validation loss read back,
+    as ``MLPEmulatorEngine._fit_no_operation`` runs them) against its wall
+    without the profiler: the host's gaps between the device's work."""
+    from .emulators.mlp import MLP, init_mlp, make_adam, make_train_step, mse
+    cases = (('fourier tables, 64 x 5 silu, 8 -> 12 660', 8, (64,) * 5, 'silu', 12660, 4096, 0.2),
+             ('fourier reference spectrum, 64 x 5 silu, 8 -> 422', 8, (64,) * 5, 'silu', 422, 4096, 0.2),
+             ('thermodynamics, 10 x 5 tanh, 5 -> 1', 5, (10,) * 5, 'tanh', 1, 256, 0.1))
+    for label, nin, nhidden, activation, nout, n, bfrac in cases:
+        X = torch.from_numpy(rng.uniform(size=(n, nin))).to(DEVICE)
+        Y = torch.from_numpy(rng.normal(size=(n, nout))).to(DEVICE)
+        nvalidation = int(0.1 * n + 0.5)
+        ntrain = n - nvalidation
+        batch = max(int(ntrain * bfrac + 0.5), 1)
+        nbatch = max(ntrain // batch, 1)
+        model = init_mlp(MLP(nin, nhidden + (nout,), (activation,) * len(nhidden), device=DEVICE),
+                         torch.Generator().manual_seed(0))
+        step = make_train_step(model, make_adam(model, 1e-3), 1e-3)
+        X_val, Y_val = X[ntrain:], Y[ntrain:]
+
+        def one_step():
+            model.train()
+            return step(X[:batch], Y[:batch])
+
+        def validation():
+            model.eval()
+            with torch.no_grad():
+                return mse(Y_val, model(X_val))
+
+        def epoch():
+            model.train()
+            for ib in range(nbatch):
+                step(X[ib * batch:(ib + 1) * batch], Y[ib * batch:(ib + 1) * batch])
+            return float(validation())
+
+        for name, fn in ((f'Adam step (batch {batch})', one_step), (f'validation ({nvalidation} rows)', validation)):
+            busy, _, _, launches, _ = profile_events(fn)
+            print(f'stage, train {label}: {name}: device {busy:.4f} ms in {launches} launches (torch.profiler), '
+                  f'stream {cuda_ms(fn):.4f} ms (CUDA events) on {card}', flush=True)
+        wall = wall_ms(epoch)
+        busy, profiled, kinds, launches, top = profile_events(epoch)
+        print(f'profile, train {label}: one epoch ({nbatch} steps of {batch} rows and the validation loss read '
+              f'back): device busy {busy:.3f} ms in {launches} kernel launches ({kinds} kinds); wall {wall:.3f} ms '
+              f'without the profiler (host gaps {wall - busy:.3f} ms, idle {1 - busy / wall:.1%}), {profiled:.3f} ms '
+              f'under it; on {card}', flush=True)
+        for name, ms, count in top:
+            print(f'  {ms:9.3f} ms  x{count:<5d} {name}', flush=True)
+
+
 def main(argv=()):
-    names = set(argv) or {'halofit', 'HMcode', 'BAO', 'native', 'harmonic', 'emulated'}
+    names = set(argv) or {'halofit', 'HMcode', 'BAO', 'native', 'harmonic', 'emulated', 'train'}
     if not torch.cuda.is_available():
         print('stage_profile: torch.cuda is not available', file=sys.stderr)
         return 1
@@ -454,6 +510,8 @@ def main(argv=()):
         harmonic_profile(card, rng=rng)
     if 'emulated' in names:
         emulated_profile(card, rng=rng)
+    if 'train' in names:
+        train_profile(card, rng=rng)
     return 0
 
 

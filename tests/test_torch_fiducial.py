@@ -1,12 +1,16 @@
 """The port's fiducial cosmologies (cosmoprimo_tpu_torch/fiducial.py): the
 DESI invariants that the JAX package's tests/test_fiducial.py states, the
 AbacusSummit table, and every ported factory's parameters and background
-against the JAX package's.
+against the JAX package's; the port's own data files (desi.dat and the
+AbacusSummit table) byte-identical to the JAX package's (sha256).
 
 Bars: the invariants' own (A_s 1e-13 absolute, h, n_s, omega_b, omega_cdm
 1e-12, N_ur 1e-4, omega_ncdm 1e-7, m_ncdm 2e-3); the parameters and
 comoving distances against the JAX package rtol 1e-12.
 """
+
+import hashlib
+import os
 
 import numpy as np
 import pytest
@@ -18,6 +22,18 @@ from cosmoprimo_tpu import fiducial as jfiducial  # noqa: E402
 from cosmoprimo_tpu_torch import CosmologyInputError, fiducial  # noqa: E402
 
 RTOL = 1e-12
+
+
+@pytest.mark.parametrize('name', ['desi.dat', 'abacus_cosmologies.csv'])
+def test_data_files_are_the_port_own_copies(name):
+    """The port reads its own copies, which equal the JAX package's."""
+    def sha256(directory):
+        with open(os.path.join(directory, name), 'rb') as file:
+            return hashlib.sha256(file.read()).hexdigest()
+
+    assert os.path.dirname(fiducial._DESI_filename) == fiducial._dir_data
+    assert fiducial._dir_data == os.path.join(os.path.dirname(os.path.abspath(fiducial.__file__)), 'data')
+    assert sha256(fiducial._dir_data) == sha256(jfiducial._dir_data)
 
 
 def test_desi_invariants():

@@ -96,7 +96,8 @@ def test_tabulated_desi():
 
 def test_tabulated_desi_state(tmp_path):
     """TabulatedDESI through a file of either package: the engine's extra
-    parameters (the table's path and names) come back."""
+    parameters (the table's path and names) come back; the JAX package's
+    file names its own copy of the table, byte-identical to the port's."""
     port = fiducial.TabulatedDESI(device='cpu')
     port.write(tmp_path / 'port.json')
     ref = jcp.Cosmology.read(str(tmp_path / 'port.json'))
@@ -104,7 +105,11 @@ def test_tabulated_desi_state(tmp_path):
     assert Cosmology.read(tmp_path / 'port.json', device='cpu') == port
     jfiducial.TabulatedDESI().write(str(tmp_path / 'jax.npy'))
     back = Cosmology.read(tmp_path / 'jax.npy', device='cpu')
-    assert back.engine.name == 'tabulated' and back.engine._extra_params == port.engine._extra_params
+    jextra = jfiducial.TabulatedDESI().engine._extra_params
+    assert back.engine.name == 'tabulated' and back.engine._extra_params == {**jextra, 'names': list(jextra['names'])}
+    assert {**back.engine._extra_params, 'filename': None} == {**port.engine._extra_params, 'filename': None}
+    with open(back.engine._extra_params['filename'], 'rb') as jax_table, open(fiducial._DESI_filename, 'rb') as table:
+        assert jax_table.read() == table.read()
     np.testing.assert_array_equal(back.comoving_radial_distance(Z).numpy(), port.comoving_radial_distance(Z).numpy())
 
 
