@@ -164,9 +164,34 @@ Phases, each failing the run (non-zero exit) if its check fails:
     batches, on the card and on the CPU: every parameter within 1e-9 of
     its tensor's max.
 
+24. parallel fan-out (slice 6c): gloo worlds of 2 and of 2 x 2 ranks,
+    spawned from this script (``--parallel-worker``), every rank on the one
+    card (NCCL refuses two ranks on one device; gloo all-reduces and
+    broadcasts CUDA tensors): the communicator's collectives and
+    point-to-point; a QMC fan-out of 4096 points through a batch-first EH
+    calculator on the card, equal to one process's samples; the headline
+    (B = 40 000), halofit (16 384), HMcode (4096) and native (phase 12's
+    4 cosmologies, kmax = 0.5) pipelines dp-sharded over 2 ranks, gathered,
+    against the unsharded run on the card (xi 1e-10 of each row's max, chi
+    and sigma8 1e-11; native 1e-9); the sharded MLP fit (4096 samples,
+    64 x 3 silu with batch normalization) on meshes (2, 1), (1, 2) and
+    (2, 2) against the unsharded fit at 1e-10 of each array's max, the same
+    epochs; a rank's failure fails the run;
+25. the wrapper engines (slice 6d): this script's own stub pyclass and camb
+    modules (numpy tables from the port's EH engine on CPU tensors; no JAX),
+    'class' (A_s and sigma8 inputs), 'axiclass', 'mochiclass', 'negnuclass',
+    'dsclass', 'camb' (A_s and sigma8), 'isitgr', 'mgcamb', 'isitide' and
+    'heftcamb': every section on the card (the Fourier tables' sigma(R) and
+    xi through the kernel, its launches counted), held to the same engine
+    on CPU tensors at 1e-12 of each output's max, no table left on the
+    host;
+26. the bindings: the cobaya theory (without cobaya: collectors,
+    calculate, getters) and the cosmosis module (a stub datablock) through
+    a cosmology on the card, numpy out, against the CPU at 1e-12.
+
 Each of phases 14-17 prints its wall (median of 5 after a warm-up). The
 kernel's launches in the main-path runs of phases 4-8, 11, 14, 15, 18,
-21 and 23 are summed into the "kernels" line. The last line is {"ok": true, "device":
+21, 23, 24 (both ranks) and 25 are summed into the "kernels" line. The last line is {"ok": true, "device":
 {...}}. Imports nothing of JAX.
 """
 
@@ -280,6 +305,14 @@ ADAM_STEPS = 20
 ADAM_RTOL = 1e-9           # parameters after ADAM_STEPS, card against CPU
 CL_NORM = ("v / jnp.exp(X['logA'] - 3.) / jnp.exp(-2 * X['tau_reio'])",
            "v * jnp.exp(X['logA'] - 3.) * jnp.exp(-2 * X['tau_reio'])")
+# slices 6c-6d: phase 24's gloo worlds, phase 25's wrapper engines and phase
+# 26's bindings
+N_QMC = 4096               # QMC points of the fan-out, one chunk a rank
+N_FIT = 4096               # samples of the sharded MLP fit
+FIT_SCHEDULE = dict(batch_frac=(0.1, 0.5), epochs=(20, 10), learning_rate=(1e-2, 1e-3), patience=(20, 3), seed=3)
+FIT_RTOL = 1e-10           # sharded fit against the unsharded fit, each array's max
+WRAPPER_RTOL = 1e-12       # wrapper engines and bindings, card against CPU
+PARALLEL_TIMEOUT = 300     # s, a world's processes are killed after it
 
 
 def _band(fiducial, rel=0.05, add=0.0):
@@ -1501,6 +1534,630 @@ def training(fftlog_kernel, rng, card):
         shutil.rmtree(directory, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------------
+# 24-26: slice 6c-6d, parallel fan-out, the wrapper engines and the bindings
+# ----------------------------------------------------------------------------
+
+def qmc_calculator(omega_cdm, h):
+    """A batch-first calculator on the card: EH distances and sigma8 (the
+    FFTLog kernel) of a (omega_cdm, h) chunk."""
+    from cosmoprimo_tpu_torch import Cosmology
+    cosmo = Cosmology(omega_cdm=omega_cdm, h=h, engine='eisenstein_hu')
+    z = torch.tensor(DESI_Z, dtype=torch.float64, device=omega_cdm.device)
+    return {'chi': cosmo.get_background().comoving_radial_distance(z), 'sigma8': cosmo.get_fourier().sigma8_m}
+
+
+def qmc_sampler(comm, device):
+    from cosmoprimo_tpu_torch.emulators.samples import QMCSampler
+    return QMCSampler(qmc_calculator, {'omega_cdm': (0.10, 0.14), 'h': (0.6, 0.75)}, comm=comm, device=device,
+                      chunk_size=N_QMC // 2)
+
+
+def sharded_fit(mesh, device, nhidden=(64, 64, 64)):
+    """The MLP fit of seeded samples (N_FIT x 6 -> 50), with batch
+    normalization, on ``mesh`` (None: unsharded on ``device``): its
+    exported arrays and epochs."""
+    from cosmoprimo_tpu_torch.emulators.mlp import MLPEmulatorEngine
+    rng = np.random.default_rng(7)
+    X = rng.uniform(size=(N_FIT, 6))
+    Y = np.sin(X @ rng.normal(size=(6, 50))) + X[:, :1] ** 2
+    engine = MLPEmulatorEngine(nhidden=nhidden, activation='silu')
+    engine.initialize([f'x{i}' for i in range(6)], device=device)
+    engine._fit_no_operation(X, Y, {}, batch_norm=True, mesh=mesh, **FIT_SCHEDULE)
+    return ([value for op in engine.model_operations for value in op._locals.values()],
+            [h['epochs'] for h in engine.history])
+
+
+def parallel_worker(port, nproc, rank, outdir):
+    """One rank of phase 24's gloo worlds (python3 chip_smoke.py
+    --parallel-worker PORT NPROC RANK OUTDIR): every rank on the one card
+    (cuda:(rank mod 1)). Writes its report, the FFTLog launches of its main
+    path and, on rank 0, the comparisons, to OUTDIR/rank{RANK}.json."""
+    import os
+    import torch.distributed as dist
+    from cosmoprimo_tpu_torch import make_native_pk_pipeline_batched, make_pk_to_xi_pipeline_batched
+    from cosmoprimo_tpu_torch.ops import fftlog_kernel
+    from cosmoprimo_tpu_torch.parallel import (FakeComm, TorchDistributedComm, gather_array, get_comm, make_mesh,
+                                               rank_device, shard_array)
+    nproc, rank = int(nproc), int(rank)
+    dist.init_process_group('gloo', init_method=f'tcp://localhost:{port}', world_size=nproc, rank=rank)
+    report = {'rank': rank, 'errors': {}, 'walls': {}}
+    try:
+        device = rank_device()
+        check(device == torch.device('cuda', 0), f'rank {rank} is not on the one card: {device}')
+        # the communicator's collectives and point-to-point
+        comm = get_comm()
+        check(isinstance(comm, TorchDistributedComm) and comm.Get_size() == nproc, 'get_comm is not the torch one')
+        got = comm.bcast({'a': np.arange(5.0)} if rank == 0 else None, root=0)
+        check(np.array_equal(got['a'], np.arange(5.0)), 'bcast')
+        check(comm.allgather(rank) == list(range(nproc)), 'allgather')
+        check(comm.scatter([r * 2 for r in range(nproc)] if rank == 1 else None, root=1) == 2 * rank, 'scatter')
+        check(comm.gather(rank, root=0) == (list(range(nproc)) if rank == 0 else None), 'gather')
+        check(comm.allreduce_sum(rank + 1) == nproc * (nproc + 1) // 2, 'allreduce_sum')
+        if rank == 1:
+            comm.send('x', dest=0, tag=3)
+        else:
+            check(comm.recv(source=1, tag=3) == ('x' if rank == 0 else None), 'send/recv')
+        comm.barrier()
+        t0 = time.perf_counter()
+        fftlog_kernel.launches = 0
+        if nproc == 2:
+            mesh = make_mesh()
+            rng = np.random.default_rng(24)
+            params = {'headline': cosmo_params(rng, B), 'halofit': cosmo_params(rng, B_HALOFIT),
+                      'mead': cosmo_params(rng, B_HMCODE), 'native': cosmo_params(rng, B_NATIVE_CHECK)}
+            fns = {'headline': make_pk_to_xi_pipeline_batched(nk=NK, z=[0.0])[0],
+                   'halofit': make_pk_to_xi_pipeline_batched(nk=NK, z=[0.0], non_linear='halofit')[0],
+                   'mead': make_pk_to_xi_pipeline_batched(nk=NK_HMCODE, z=[0.0], non_linear='mead')[0],
+                   'native': make_native_pk_pipeline_batched(nk=NK_NATIVE, kmax=0.5, z=(0.0, 1.0))[0]}
+            samples = qmc_sampler(comm, device).run(niterations=N_QMC)
+            gathered = {}
+            for name, fn in fns.items():
+                t1 = time.perf_counter()
+                gathered[name] = [gather_array(out, mesh) for out in fn(*[shard_array(p, mesh) for p in params[name]])]
+                torch.cuda.synchronize()
+                report['walls'][name] = time.perf_counter() - t1
+            fits = {shape: sharded_fit(make_mesh(shape=shape), device) for shape in ((2, 1), (1, 2))}
+        else:
+            fits = {(2, 2): sharded_fit(make_mesh(shape=(2, 2)), device)}
+        torch.cuda.synchronize()
+        report['launches'] = fftlog_kernel.launches
+        report['walls']['main path'] = time.perf_counter() - t0
+        for shape, (arrays, epochs) in fits.items():
+            report[f'fit {shape} epochs'] = epochs
+        if rank == 0:   # the unsharded references, on the same card
+            arrays_ref, epochs_ref = sharded_fit(None, device)
+            for shape, (arrays, epochs) in fits.items():
+                check(epochs == epochs_ref, f'the fit on mesh {shape} stopped at {epochs}, unsharded {epochs_ref}')
+                report['errors'][f'fit {shape}'] = max(float(np.max(np.abs(a - r)) / np.max(np.abs(r)))
+                                                       for a, r in zip(arrays, arrays_ref))
+            report['fit epochs'] = epochs_ref
+            if nproc == 2:
+                ref = qmc_sampler(FakeComm(), device).run(niterations=N_QMC)
+                check(set(ref) == set(samples), 'the fan-out gathered other columns')
+                report['errors']['qmc'] = max(float(np.max(np.abs(samples[name] - ref[name]))) for name in ref)
+                for name, fn in fns.items():
+                    outputs = fn(*[torch.from_numpy(p).to(device) for p in params[name]])
+                    report['errors'][name] = [rel_err(got.reshape(len(got), -1), out.reshape(len(out), -1))
+                                              for got, out in zip(gathered[name], outputs)]
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(outdir, f'rank{rank}.json'), 'w') as f:
+        json.dump(report, f)
+    return 0
+
+
+def run_world(nproc, timeout):
+    """Phase 24: ``nproc`` ranks of this script's parallel worker; raises
+    with the output of any rank that fails. Returns the ranks' reports."""
+    import os
+    import socket
+    import tempfile
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        port = s.getsockname()[1]
+    outdir = tempfile.mkdtemp()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, 'PYTHONPATH': here + os.pathsep + os.environ.get('PYTHONPATH', '')}
+    logs = [open(os.path.join(outdir, f'rank{rank}.log'), 'w') for rank in range(nproc)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), '--parallel-worker', str(port), str(nproc),
+                               str(rank), outdir], stdout=log, stderr=subprocess.STDOUT, env=env)
+             for rank, log in enumerate(logs)]
+    deadline = time.perf_counter() + timeout
+    try:
+        while time.perf_counter() < deadline and any(p.poll() is None for p in procs):
+            time.sleep(0.2)
+            if any(p.poll() not in (None, 0) for p in procs):
+                break   # a rank failed: the others may wait for it
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    outputs = []
+    for rank in range(nproc):
+        with open(os.path.join(outdir, f'rank{rank}.log')) as f:
+            outputs.append(f.read())
+    for rank, (p, out) in enumerate(zip(procs, outputs)):
+        check(p.returncode == 0, f'rank {rank} of {nproc} failed (exit {p.returncode}; killed after {timeout} s or '
+                                 f'when a rank failed):\n{out[-3000:]}')
+    reports = []
+    for rank in range(nproc):
+        with open(os.path.join(outdir, f'rank{rank}.json')) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def parallel(card):
+    """Phase 24: gloo worlds of 2 and 2 x 2 ranks on the one card. Returns
+    the FFTLog launches of the ranks' main paths."""
+    t0 = time.perf_counter()
+    reports = run_world(2, timeout=PARALLEL_TIMEOUT)
+    wall2 = time.perf_counter() - t0
+    errors = reports[0]['errors']
+    launches = sum(r['launches'] for r in reports)
+    print(f'parallel (2 ranks, gloo; both on the one card: NCCL refuses two ranks on one device): the '
+          f'collectives and point-to-point ok; QMC fan-out of {N_QMC} points against one process, max |d| '
+          f'{errors["qmc"]:.3e} (bar 0: the same chunks); world wall {wall2:.1f} s, rank walls '
+          f'{", ".join(f"{name} {w:.2f} s" for name, w in reports[0]["walls"].items())} on {card}', flush=True)
+    check(errors['qmc'] == 0.0, 'the QMC fan-out differs from one process')
+    bars = {'headline': (XI_BAR, CHI_SIGMA8_RTOL, CHI_SIGMA8_RTOL), 'halofit': (XI_BAR, CHI_SIGMA8_RTOL, CHI_SIGMA8_RTOL),
+            'mead': (XI_BAR, CHI_SIGMA8_RTOL, CHI_SIGMA8_RTOL), 'native': (NATIVE_RTOL, NATIVE_RTOL)}
+    for name, bar in bars.items():
+        print(f'parallel: dp-sharded {name} ({", ".join(f"{e:.3e}" for e in errors[name])} of each row\'s max against '
+              f'the unsharded run on the card; bars {", ".join(f"{b:g}" for b in bar)})', flush=True)
+        check(all(e <= b for e, b in zip(errors[name], bar)), f'the dp-sharded {name} disagrees with the unsharded run')
+    t0 = time.perf_counter()
+    reports4 = run_world(4, timeout=PARALLEL_TIMEOUT)
+    wall4 = time.perf_counter() - t0
+    errors.update(reports4[0]['errors'])
+    for shape in ('(2, 1)', '(1, 2)', '(2, 2)'):
+        print(f'parallel: MLP fit on mesh {shape} (dp, tp), {N_FIT} samples, 64 x 3 silu with batch '
+              f'normalization: {errors[f"fit {shape}"]:.3e} of each array\'s max against the unsharded fit on the card '
+              f'(bar {FIT_RTOL:g}), epochs {reports[0]["fit epochs"] if shape != "(2, 2)" else reports4[0]["fit epochs"]}',
+              flush=True)
+        check(errors[f'fit {shape}'] <= FIT_RTOL, f'the sharded fit on mesh {shape} disagrees')
+    print(f'parallel: 2 x 2 world (4 ranks on the one card) wall {wall4:.1f} s; kernel launches of the 2-rank '
+          f'main path {launches}', flush=True)
+    return launches
+
+
+def stub_host_modules():
+    """Phase 25's own stub ``pyclass`` and ``camb`` modules (with the
+    variants' names): numpy tables made by the port's EH engine on CPU
+    tensors, so that the wrapper engines run without the host codes and
+    without JAX. Returns {module name: module}."""
+    import types
+    from cosmoprimo_tpu_torch import Cosmology, constants
+
+    def truth(h, omega_cdm, omega_b, A_s=None, sigma8=None, n_s=0.96):
+        amplitude = {'A_s': A_s} if A_s is not None else {'sigma8': 0.8 if sigma8 is None else sigma8}
+        return Cosmology(h=h, omega_cdm=omega_cdm, omega_b=omega_b, n_s=n_s, engine='eisenstein_hu', device='cpu',
+                         **amplitude)
+
+    def npy(value):
+        return value.numpy() if isinstance(value, torch.Tensor) else np.asarray(value, dtype=np.float64)
+
+    k_h, z_pk = np.geomspace(1e-4, 10.0, 200), np.array([0.0, 0.5, 1.0, 2.0])
+    scale = {'delta_tot': 1.0, 'delta_m': 1.0, 'delta_nonu': 1.05, 'delta_cb': 1.05, 'v_newtonian_cdm': 0.8,
+             'v_newtonian_baryon': 0.6, 'Weyl': 3.0}
+
+    def pk_table(cosmo, non_linear=False):
+        pk = npy(cosmo.get_fourier().pk_interpolator()(k_h, z_pk))
+        return pk * (1.0 + 0.1 * k_h[:, None] / (1.0 + k_h[:, None])) if non_linear else pk
+
+    def cl_array(ellmax, names, amp=1e-10):
+        ell = np.arange(ellmax + 1)
+        out = np.empty(ellmax + 1, dtype=[('ell', np.int64)] + [(n, np.float64) for n in names])
+        out['ell'] = ell
+        for i, n in enumerate(names):
+            out[n] = amp * (i + 1) / (ell * (ell + 1.0) + 1.0)
+        return out
+
+    def structured(**columns):
+        out = np.empty(len(next(iter(columns.values()))), dtype=[(name, np.float64) for name in columns])
+        for name, value in columns.items():
+            out[name] = value
+        return out
+
+    class ClassInputError(Exception):
+        pass
+
+    class ClassComputationError(Exception):
+        pass
+
+    class ClassEngine(object):
+        def __init__(self, params=None):
+            self.params = dict(params or {})
+            h = float(self.params['h'])
+            self.h = h
+            self.cosmo = truth(h, float(self.params['Omega_cdm']) * h ** 2, float(self.params['Omega_b']) * h ** 2,
+                               A_s=self.params.get('A_s'), sigma8=self.params.get('sigma8'),
+                               n_s=float(self.params.get('n_s', 0.96)))
+            self.ba = self.cosmo.get_background()
+
+        def compute(self, tasks):
+            pass
+
+        def get_background(self):
+            ba = self.ba
+
+            def table():
+                z = np.geomspace(1e-3, 100.0, 64)[::-1].copy()
+                H = npy(ba.hubble_function(z)) / (constants.c / 1e3)
+                fb = float(self.cosmo['Omega_b'] / self.cosmo['Omega_m'])
+                rho_m, rho_de = H ** 2 * npy(ba.Omega_m(z)), H ** 2 * npy(ba.Omega_de(z))
+                return structured(**{'z': z, 'H [1/Mpc]': H, '(.)rho_b': rho_m * fb, '(.)rho_cdm': rho_m * (1 - fb),
+                                     '(.)rho_fld': rho_de})
+
+            return types.SimpleNamespace(
+                efunc=lambda z: npy(ba.efunc(z)), comoving_radial_distance=lambda z: npy(ba.comoving_radial_distance(z)),
+                time=lambda z: npy(ba.time(z)), growth_factor=lambda z: npy(ba.growth_factor(z)),
+                growth_rate=lambda z: npy(ba.growth_rate(z)),
+                comoving_sound_horizon=lambda z: 100.0 * np.sqrt(1090.0 / np.maximum(np.asarray(z, dtype=float), 1.0)),
+                table=table)
+
+        def get_thermodynamics(self):
+            th = self.cosmo.get_thermodynamics()
+            tau = float(self.params.get('tau_reio', 0.06))
+
+            def table():
+                z = np.linspace(0.0, 2000.0, 512)
+                return structured(**{'z': z, 'exp(-kappa)': np.exp(-(tau * (z < 50.0) + (z / 1100.0) ** 8))})
+
+            return types.SimpleNamespace(rs_drag=float(th.rs_drag) / self.h, z_drag=float(th.z_drag),
+                                         rs_star=0.98 * float(th.rs_drag) / self.h, z_star=1100.0, tau_reio=tau,
+                                         z_reio=7.7, YHe=0.245, table=table)
+
+        def get_primordial(self):
+            return types.SimpleNamespace(A_s=float(self.params.get('A_s', 2.1e-9)))
+
+        def get_perturbations(self):
+            k = np.geomspace(1e-3, 1.0, 16)
+            return types.SimpleNamespace(table=lambda: structured(k=k, delta_cdm=-k ** 0.5))
+
+        def get_transfer(self):
+            k = np.geomspace(1e-4, 10.0, 32)
+            tk = npy(self.cosmo.get_transfer().transfer_k(torch.from_numpy(k)))
+            return types.SimpleNamespace(table=lambda z=0.0: structured(k=k, d_cdm=tk / (1 + z), d_b=0.9 * tk / (1 + z)))
+
+        def get_harmonic(self):
+            names = ['tt', 'ee', 'bb', 'te']
+            return types.SimpleNamespace(
+                unlensed_cl=lambda ellmax=-1: cl_array(ellmax, names),
+                lensed_cl=lambda ellmax=-1: cl_array(ellmax, names, amp=1.1e-10),
+                lens_potential_cl=lambda ellmax=-1: cl_array(ellmax, ['pp', 'tp', 'ep'], amp=1e-12),
+                unlensed_table=lambda ellmax=-1, of=None: cl_array(ellmax, list(of) if of else names),
+                lensed_table=lambda ellmax=-1, of=None: cl_array(ellmax, list(of) if of else names, amp=1.1e-10))
+
+        def get_fourier(self):
+            sigma8 = float(self.cosmo.get_fourier().sigma8_m)
+
+            def table(non_linear='', of='delta_m'):
+                of = (of, of) if isinstance(of, str) else of
+                return k_h, z_pk, pk_table(self.cosmo, bool(non_linear)) * scale[of[0]] * scale[of[1]]
+
+            return types.SimpleNamespace(table=table, sigma8_m=sigma8, sigma8_cb=1.005 * sigma8)
+
+    pyclass = types.ModuleType('pyclass')
+    modules = {'pyclass': pyclass}
+    for name in ('', 'axiclass', 'mochiclass', 'negnuclass', 'dsclass'):
+        module = types.ModuleType(f'pyclass.{name}') if name else pyclass
+        module.ClassEngine, module.ClassInputError, module.ClassComputationError = (ClassEngine, ClassInputError,
+                                                                                   ClassComputationError)
+        if name:
+            setattr(pyclass, name, module)
+            modules[f'pyclass.{name}'] = module
+
+    class CAMBError(Exception):
+        pass
+
+    transfer_names = ['k/h', 'delta_cdm', 'delta_baryon', 'delta_tot', 'delta_nonu', 'Weyl', 'v_newtonian_cdm',
+                      'v_newtonian_baryon']
+
+    class CAMBparams(object):
+        def __init__(self):
+            self.InitPower = types.SimpleNamespace(As=2.1e-9, ns=0.96, nrun=0.0, nrunrun=0.0, pivot_scalar=0.05,
+                                                   pivot_tensor=0.05, r=0.0, nt=0.0, ntrun=0.0)
+            self.Reion = types.SimpleNamespace(optical_depth=0.06, delta_redshift=0.5)
+            self.NonLinear, self.NonLinearModel, self.DoLensing, self.Want_CMB_lensing = 0, None, False, False
+            self.H0, self.ombh2, self.omch2, self.YHe, self.zrei = 70.0, 0.022, 0.12, 0.245, 7.7
+            self.redshifts, self.EFTCAMB, self.extra = np.array([0.0]), object(), {}
+
+        def get_zrei(self):
+            return self.zrei
+
+        def primordial_power(self, k, index):
+            ip = self.InitPower
+            if index != 0:
+                return np.zeros_like(np.asarray(k))
+            lnk = np.log(np.asarray(k) / ip.pivot_scalar)
+            return ip.As * np.exp((ip.ns - 1.0 + 0.5 * ip.nrun * lnk + ip.nrunrun * lnk ** 2 / 6.0) * lnk)
+
+    def set_params(pars, **kwargs):
+        for name, value in kwargs.items():
+            if name in vars(pars.InitPower):
+                setattr(pars.InitPower, name, value)
+            elif name == 'tau':
+                pars.Reion.optical_depth = value
+            elif hasattr(pars, name) and not (name == 'YHe' and value is None):
+                setattr(pars, name, value)
+            elif name != 'YHe':
+                pars.extra[name] = value
+        return pars
+
+    class CAMBdata(object):
+        def __init__(self, pars=None, no_thermo=True):
+            if pars is not None:
+                self.calc_power_spectra(pars)
+
+        def calc_power_spectra(self, pars=None):
+            self.Params, self.h = pars, pars.H0 / 100.0
+            self.cosmo = truth(self.h, pars.omch2, pars.ombh2, A_s=pars.InitPower.As, n_s=pars.InitPower.ns)
+            self.ba = self.cosmo.get_background()
+            self.transfer_redshifts = np.sort(np.asarray(pars.redshifts))
+
+        _names = {'K': 'k', 'cdm': 'cdm', 'baryon': 'b', 'photon': 'g', 'neutrino': 'ur', 'nu': 'ncdm_tot', 'de': 'de'}
+
+        def get_Omega(self, var, z=0.0):
+            return npy(getattr(self.ba, 'Omega_' + self._names[var])(np.asarray(z, dtype=float)))
+
+        def get_background_densities(self, a, vars=()):
+            z = 1.0 / np.asarray(a, dtype=float) - 1.0
+            RH0 = constants.rho_crit_over_Msunph_per_Mpcph3 * constants.c ** 2 / (self.Params.H0 * 1e3) ** 2 / 3.0
+            return {var: npy(getattr(self.ba, 'rho_' + self._names[var])(z)) / RH0 / (1.0 + z) for var in vars}
+
+        def hubble_parameter(self, z):
+            return npy(self.ba.hubble_function(np.asarray(z, dtype=float)))
+
+        def physical_time(self, z):
+            return float(self.ba.time(float(z)))
+
+        def comoving_radial_distance(self, z):
+            return npy(self.ba.comoving_radial_distance(np.asarray(z, dtype=float))) / self.h
+
+        def angular_diameter_distance(self, z):
+            return npy(self.ba.angular_diameter_distance(np.asarray(z, dtype=float))) / self.h
+
+        def luminosity_distance(self, z):
+            return npy(self.ba.luminosity_distance(np.asarray(z, dtype=float))) / self.h
+
+        def get_derived_params(self):
+            th = self.cosmo.get_thermodynamics()
+            return {'rdrag': float(th.rs_drag) / self.h, 'zdrag': float(th.z_drag), 'zstar': 1089.0, 'age': 13.8}
+
+        def sound_horizon(self, z):
+            return 100.0 * np.sqrt(1090.0 / np.maximum(np.asarray(z, dtype=float), 1.0)) / self.h / 0.7
+
+        def cosmomc_theta(self):
+            return 0.0104
+
+        def get_background_redshift_evolution(self, z, vars=()):
+            z = np.asarray(z, dtype=float)
+            dtau_dz = 8.0 / 1100.0 * (np.maximum(z, 1e-10) / 1100.0) ** 7.0
+            return {'opacity': dtau_dz / np.maximum(np.gradient(self.comoving_radial_distance(z), z), 1e-30)}
+
+        def get_matter_transfer_data(self):
+            k = np.geomspace(1e-4, 10.0, 32)
+            tk = npy(self.cosmo.get_transfer().transfer_k(torch.from_numpy(k)))
+            z = self.transfer_redshifts
+            data = np.stack([k[:, None] * np.ones_like(z)] + [tk[:, None] * (1.0 + 0.01 * i) / (1.0 + z)
+                                                              for i in range(1, len(transfer_names))])
+            return types.SimpleNamespace(transfer_data=data)
+
+        def get_linear_matter_power_spectrum(self, var1='delta_tot', var2='delta_tot', hubble_units=True,
+                                             k_hunit=True, have_power_spectra=True, nonlinear=False):
+            k, pk = k_h * self.h, pk_table(self.cosmo, nonlinear) / self.h ** 3
+            factor = 1.0
+            for var in (var1, var2):
+                factor = factor * (scale[var] * k[:, None] ** 2 / 2.0 if var == 'Weyl' else scale[var])
+            pk = pk * factor
+            return (k / self.h if k_hunit else k), z_pk, (pk * self.h ** 3 if hubble_units else pk).T
+
+        def get_sigma8(self):
+            s8 = float(self.cosmo.get_fourier().sigma8_m)
+            return np.array([s8 * (1.0 + 0.01 * i) for i in range(len(self.transfer_redshifts))])[::-1]
+
+        def get_unlensed_total_cls(self, lmax=None, CMB_unit=None, raw_cl=True):
+            ell = np.arange(lmax + 1)
+            return np.stack([1e-10 * (i + 1) / (ell * (ell + 1.0) + 1.0) for i in range(4)], axis=-1)
+
+        def get_total_cls(self, lmax=None, CMB_unit=None, raw_cl=True):
+            return 1.1 * self.get_unlensed_total_cls(lmax=lmax)
+
+        def get_lens_potential_cls(self, lmax=None, CMB_unit=None, raw_cl=True):
+            ell = np.arange(lmax + 1)
+            return np.stack([1e-12 * (i + 1) / (ell * (ell + 1.0) + 1.0) ** 2 for i in range(3)], axis=-1)
+
+        def get_fQ_growth_rate(self, z=0.0):
+            return 1.01 * npy(self.ba.growth_rate(np.asarray(z, dtype=float)))
+
+        def get_growth_factor(self, z=0.0):
+            return npy(self.ba.growth_factor(np.asarray(z, dtype=float)))
+
+    camb = types.ModuleType('camb')
+    camb.CAMBparams, camb.CAMBdata, camb.set_params, camb.CAMBError = CAMBparams, CAMBdata, set_params, CAMBError
+    camb.get_background = lambda pars, no_thermo=True: CAMBdata(pars)
+    camb.get_transfer_functions = lambda pars: CAMBdata(pars)
+    camb.baseconfig = types.SimpleNamespace(CAMBError=CAMBError, CAMBParamRangeError=CAMBError,
+                                            CAMBValueError=CAMBError, CAMBUnknownArgumentError=CAMBError)
+    camb.model = types.SimpleNamespace(NonLinear_none=0, NonLinear_both=2, transfer_names=transfer_names)
+    camb.nonlinear = types.SimpleNamespace(Halofit=lambda: types.SimpleNamespace(set_params=lambda **kw: None))
+    camb.dark_energy = types.SimpleNamespace(DarkEnergyPPF=object, DarkEnergyFluid=object)
+    modules.update({name: camb for name in ('camb', 'isitgr', 'mgcamb', 'isitide', 'heftcamb')})
+    return modules
+
+
+def section_outputs(cosmo, camb):
+    """Every section's outputs of a wrapper-engine cosmology (tensors, or
+    host floats and tables)."""
+    z, k, zq = DESI_Z, np.geomspace(1e-3, 5.0, 64), np.array([0.0, 0.5, 1.0])
+    ba, th, pm = cosmo.get_background(), cosmo.get_thermodynamics(), cosmo.get_primordial()
+    fo, hr, tr = cosmo.get_fourier(), cosmo.get_harmonic(), cosmo.get_transfer()
+    out = {name: getattr(ba, name)(z) for name in ('efunc', 'hubble_function', 'comoving_radial_distance', 'time',
+                                                   'growth_factor', 'growth_rate', 'angular_diameter_distance',
+                                                   'luminosity_distance', 'Omega_m', 'Omega_de', 'rho_cdm')}
+    out.update({'growth_factor cb': ba.growth_factor(z, mass='cb'), 'age': ba.age})
+    out.update({name: getattr(th, name) for name in ('rs_drag', 'z_drag', 'z_star', 'rs_star', 'theta_star',
+                                                     'z_star_noreion', 'rs_star_noreion', 'theta_cosmomc')})
+    out.update({'A_s': pm.A_s, 'pk_k': pm.pk_k(k)})
+    of = ('delta_m', 'delta_cb', 'theta_cb', 'phi_plus_psi') if camb else ('delta_m', 'delta_cb')
+    out.update({f'pk {name}': fo.pk_interpolator(of=name)(k, zq) for name in of})
+    out.update({'sigma8_m': fo.sigma8_m, 'sigma_rz': fo.sigma_rz(np.array([8.0, 12.0]), zq),
+                'xi': fo.pk_interpolator().to_xi()(np.geomspace(10.0, 150.0, 32), zq)})
+    if cosmo['lensing']:
+        out.update({f'cl {key}': value for key, value in hr.lensed_cl(ellmax=500).items() if key != 'ell'})
+    out.update({f'unlensed {key}': value for key, value in hr.unlensed_cl(ellmax=500).items() if key != 'ell'})
+    table = tr.table() if camb else tr.table(0.0)
+    out.update({f'transfer {name}': table[name] for name in table.dtype.names})
+    if not camb:
+        out['perturbations'] = cosmo.get_perturbations().table()['delta_cdm']
+    return out
+
+
+def wrapper_engines(fftlog_kernel, card):
+    """Phase 25: every section of the CLASS and CAMB wrapper engines and
+    their variants on the card, against the same engine on CPU tensors,
+    through phase 25's stub host modules. Returns the FFTLog launches of
+    the card's runs."""
+    t0 = time.perf_counter()
+    modules = stub_host_modules()
+    saved = {name: sys.modules.get(name) for name in modules}
+    sys.modules.update(modules)
+    from cosmoprimo_tpu_torch import Cosmology
+    base = dict(omega_cdm=0.12, omega_b=0.02237, h=0.6736, n_s=0.9649)
+    cases = [('class', dict(A_s=2.083e-9)), ('class', dict(sigma8=0.78, lensing=True)),
+             ('axiclass', dict(A_s=2.083e-9, extra_params={'scf_parameters__1': 2.7, 'scf_parameters__2': 0.0})),
+             ('mochiclass', dict(A_s=2.083e-9)), ('negnuclass', dict(A_s=2.083e-9)),
+             ('dsclass', dict(A_s=2.083e-9, xi_ds=0.5)),
+             ('camb', dict(A_s=2.083e-9, lensing=True, z_pk=[0.0, 0.5, 1.0, 2.0])),
+             ('camb', dict(sigma8=0.78, z_pk=[0.0, 0.5, 1.0, 2.0])), ('isitgr', dict(A_s=2.083e-9, mu0=0.1)),
+             ('mgcamb', dict(A_s=2.083e-9, B1=1.5)), ('isitide', dict(A_s=2.083e-9, z_pk=[0.0, 1.0])),
+             ('heftcamb', dict(A_s=2.083e-9, extra_params={'RPH_braiding0': 0.2}))]
+    launches, worst, host = 0, (0.0, ''), []
+    try:
+        for name, kwargs in cases:
+            camb = name not in ('class', 'axiclass', 'mochiclass', 'negnuclass', 'dsclass')
+            fftlog_kernel.launches = 0
+            out = section_outputs(Cosmology(engine=name, device=DEVICE, **base, **kwargs), camb)
+            torch.cuda.synchronize()
+            check(fftlog_kernel.launches > 0, f'engine {name!r} did not launch the FFTLog kernel')
+            launches += fftlog_kernel.launches
+            ref = section_outputs(Cosmology(engine=name, device='cpu', **base, **kwargs), camb)
+            for key, value in ref.items():
+                got = out[key]
+                if isinstance(got, torch.Tensor):
+                    check(got.device.type == 'cuda', f'{name} {key} is not on the card')
+                    got = got.cpu()
+                elif isinstance(value, torch.Tensor) or key.startswith(('pk ', 'xi', 'sigma_rz', 'cl ')):
+                    host.append(f'{name} {key}')
+                got, value = np.asarray(got, dtype=np.float64), np.asarray(value, dtype=np.float64)
+                err = float(np.max(np.abs(got - value)) / max(np.max(np.abs(value)), 1e-300))
+                check(got.shape == value.shape and np.isfinite(got).all(), f'{name} {key}: shape or finite')
+                worst = max(worst, (err, f'{name} {key}'))
+        check(not host, f'tables served from the host instead of the card: {host}')
+    finally:
+        for name, module in saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+    print(f'wrapper engines: {len(cases)} cases of class, camb and their variants, every section on the card against '
+          f'the same engine on CPU tensors: worst {worst[1]} {worst[0]:.3e} (bar {WRAPPER_RTOL:g}); kernel launches '
+          f'{launches}; wall {time.perf_counter() - t0:.1f} s on {card}', flush=True)
+    check(worst[0] <= WRAPPER_RTOL, 'a wrapper engine disagrees between the card and the CPU')
+    return launches
+
+
+def bindings(card):
+    """Phase 26: the cobaya theory (without cobaya) and the cosmosis module
+    (a stub datablock) through a cosmology on the card, against the CPU;
+    the frameworks get numpy."""
+    import types
+    from cosmoprimo_tpu_torch import Cosmology
+    from cosmoprimo_tpu_torch.bindings.cobaya.cosmoprimo_tpu_torch import CosmoprimoTPUTorch
+    from cosmoprimo_tpu_torch.bindings.cosmosis import cosmoprimo_tpu_torch_interface as iface
+    t0 = time.perf_counter()
+    z = np.array([0.3, 0.8, 1.4])
+    states = []
+    for device in (DEVICE, 'cpu'):
+        theory = CosmoprimoTPUTorch.__new__(CosmoprimoTPUTorch)
+        theory._base_cosmo = Cosmology(engine='eisenstein_hu', device=device, omega_cdm=0.12, omega_b=0.02237,
+                                       h=0.6736, A_s=2.083e-9, n_s=0.9649)
+        theory.output_params, theory.log = ['omegam', 'rdrag'], None
+        theory.must_provide({('Pk_grid', False, 'delta_tot', 'delta_tot'): {'k_max': 2.0, 'z': z, 'nonlinear': False},
+                             ('sigma_R', 'delta_tot', 'delta_tot'): {'k_max': 2.0, 'z': z, 'R': np.array([8.0, 12.0])}},
+                            Hubble={'z': z}, angular_diameter_distance={'z': z}, sigma8_z={'z': z},
+                            fsigma8={'z': z})
+        state = {}
+        check(theory.calculate(state, want_derived=True, omega_cdm=0.121) is True, 'cobaya calculate')
+        theory.current_state = state
+        state = {key: value for key, value in state.items() if key != 'cosmo'}
+        state['getters'] = (theory.get_Hubble(z), theory.get_comoving_radial_distance(z), theory.get_sigma8_z(z),
+                            theory.get_fsigma8(z), theory.get_rs_drag())
+        cosmosis = types.ModuleType('cosmosis')
+        cosmosis.datablock = types.ModuleType('cosmosis.datablock')
+        cosmosis.datablock.names = types.SimpleNamespace(cosmological_parameters='cosmological_parameters',
+                                                         distances='distances', growth_parameters='growth',
+                                                         cmb_cl='cmb_cl')
+        cosmosis.datablock.option_section = 'module_options'
+        saved = {name: sys.modules.get(name) for name in ('cosmosis', 'cosmosis.datablock')}
+        sys.modules.update({'cosmosis': cosmosis, 'cosmosis.datablock': cosmosis.datablock})
+        try:
+            options = {'fourier': True, 'nz': 20, 'device': '' if device == DEVICE else 'cpu'}
+            getter = types.SimpleNamespace(**{f'get_{kind}': (lambda s, n, default=None: options.get(n, default))
+                                              for kind in ('string', 'double', 'int', 'bool')})
+            config = iface.setup(getter)
+            check(config['base'].device.type == torch.device(device).type, 'cosmosis setup ignored the device')
+
+            class Block(dict):
+                def has_value(self, section, name):
+                    return (section, name) in self
+
+                def put_grid(self, section, zname, zz, kname, k, pname, p):
+                    self.update({(section, zname): zz, (section, kname): k, (section, pname): p})
+
+            block = Block({('cosmological_parameters', name): value for name, value in
+                           dict(h0=0.6736, omega_b=0.0493, omega_c=0.2645, n_s=0.9649, a_s=2.083e-9).items()})
+            check(iface.execute(block, config) == 0 and iface.cleanup(config) == 0, 'cosmosis execute')
+            state['cosmosis'] = dict(block)
+        finally:
+            for name, module in saved.items():
+                if module is None:
+                    sys.modules.pop(name, None)
+                else:
+                    sys.modules[name] = module
+        states.append(state)
+
+    def leaves(tree, prefix=''):
+        if isinstance(tree, dict):
+            for key, value in tree.items():
+                yield from leaves(value, f'{prefix} {key}')
+        elif isinstance(tree, (tuple, list)):
+            for i, value in enumerate(tree):
+                yield from leaves(value, f'{prefix}[{i}]')
+        else:
+            yield prefix, tree
+
+    got, ref = dict(leaves(states[0])), dict(leaves(states[1]))
+    check(set(got) == set(ref), 'the bindings gave other products on the card')
+    worst = (0.0, '')
+    for key, value in ref.items():
+        check(not isinstance(got[key], torch.Tensor), f'binding product {key} is a tensor, not numpy')
+        g, r = np.asarray(got[key], dtype=np.float64), np.asarray(value, dtype=np.float64)
+        finite = np.isfinite(r)
+        check(g.shape == r.shape and np.array_equal(np.isfinite(g), finite), f'binding product {key}')
+        if finite.any():
+            worst = max(worst, (float(np.max(np.abs(g[finite] - r[finite])) / max(np.max(np.abs(r[finite])), 1e-300)),
+                                key))
+    print(f'bindings: cobaya theory (collectors, calculate, getters) and cosmosis execute through a cosmology on the '
+          f'card, {len(ref)} products, numpy, against the CPU: worst{worst[1]} {worst[0]:.3e} (bar {WRAPPER_RTOL:g}); '
+          f'wall {time.perf_counter() - t0:.1f} s on {card}', flush=True)
+    check(worst[0] <= WRAPPER_RTOL, 'the bindings disagree between the card and the CPU')
+
+
 def kernel_bound_ms(x, args):
     """The least time the card could take for one call of the core on ``x``
     (rows, size) with ``args``: each input read once and the output written
@@ -1750,6 +2407,14 @@ def main():
     launches += training(fftlog_kernel, rng, card)
     print(f'phase 23: {time.perf_counter() - t0:.1f} s', flush=True)
 
+    # 24-26. parallel fan-out, the wrapper engines and the bindings
+    torch.cuda.empty_cache()   # the ranks of phase 24 share the card with this process
+    t0 = time.perf_counter()
+    launches += parallel(card)
+    launches += wrapper_engines(fftlog_kernel, card)
+    bindings(card)
+    print(f'phases 24-26: {time.perf_counter() - t0:.1f} s', flush=True)
+
     print(json.dumps({'kernels': [{
         'name': 'fftlog_core', 'route': 'cuda', 'source': 'cosmoprimo_tpu_torch/csrc/fftlog_core.cu',
         'replaces': 'cosmoprimo_tpu/ops/pallas_fft.py:244', 'launches': launches,
@@ -1761,4 +2426,6 @@ def main():
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--parallel-worker']:
+        sys.exit(parallel_worker(*sys.argv[2:]))
     sys.exit(main())

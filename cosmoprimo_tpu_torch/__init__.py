@@ -6,7 +6,8 @@ a hand-written CUDA kernel on CUDA tensors (ops/fftlog_kernel.py,
 csrc/fftlog_core.cu). This package imports neither JAX nor cosmoprimo_tpu.
 """
 
-from .cosmology import Cosmology, CosmologyError, CosmologyInputError
+from . import constants
+from .cosmology import Cosmology, CosmologyComputationError, CosmologyError, CosmologyInputError
 from .fftlog import (CorrelationToPower, FFTlog, GaussianVariance, HankelTransform, PowerToCorrelation,
                      TophatVariance)
 from .bao_filter import CorrelationFunctionBAOFilter, PowerSpectrumBAOFilter

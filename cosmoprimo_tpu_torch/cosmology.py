@@ -38,6 +38,10 @@ class CosmologyInputError(CosmologyError):
     """Error in the value of input parameters."""
 
 
+class CosmologyComputationError(CosmologyError):
+    """Error during a cosmology computation."""
+
+
 # ----------------------------------------------------------------------------
 # Neutrino phase-space integrals
 # ----------------------------------------------------------------------------
@@ -608,6 +612,21 @@ _ENGINE_MODULES = {
     'tabulated': 'models.tabulated',
     'astropy': 'models.astropy',
     'native': 'models.native',
+    'class': 'models.classy',
+    'classy': 'models.classy',
+    'axiclass': 'models.classy',
+    'axiclassy': 'models.classy',
+    'mochiclass': 'models.classy',
+    'mochiclassy': 'models.classy',
+    'negnuclass': 'models.classy',
+    'negnuclassy': 'models.classy',
+    'dsclass': 'models.classy',
+    'dsclassy': 'models.classy',
+    'camb': 'models.camb',
+    'isitgr': 'models.camb',
+    'mgcamb': 'models.camb',
+    'isitide': 'models.camb',
+    'heftcamb': 'models.camb',
     'emulated': 'emulators.emulated',
     'capse': 'emulators.emulated',
     'cosmopower_bolliet2023': 'emulators.emulated',
@@ -698,6 +717,10 @@ class BaseEngine(ParamsAccessor):
             Section = getattr(module, name, None)
             if Section is not None:
                 sections[name.lower()] = Section
+        # engine-specific overrides (a variant engine swapping one section
+        # while sharing its module's others)
+        for name, Section in getattr(cls, '_section_overrides', {}).items():
+            sections[name.lower()] = Section
         cls._Section_classes_cache = sections
         return sections
 

@@ -11,6 +11,15 @@ stages on the card (the JAX package's staged batch-fraction / learning-rate
 schedule with early stopping) and serves it as its exported Operation
 chain: the dense products are ``torch.matmul``, evaluated for one cosmology
 and vmapped over the batch by the base engine.
+
+On a mesh (``parallel.make_mesh``) the fit is sharded as the JAX package
+shards it: each 'dp' rank takes its block of every batch, the loss, the
+batch-normalization statistics and the validation loss are those of the
+global batch (sums all-reduced over 'dp'); over 'tp' the even layers are
+column-parallel (the kernel's output columns and the bias split) and the
+odd ones row-parallel (the kernel's rows split, the partial products
+all-reduced, the bias added once). The collectives are ``all_reduce``
+only, explicit, with autograd rules of their own.
 """
 
 import math
@@ -19,6 +28,8 @@ import time
 import numpy as np
 import torch
 
+from ..parallel.distributed import split_ranks
+from ..parallel.mesh import Mesh
 from .base import BaseEmulatorEngine, make_list, map_rows, register_emulator_engine
 from .operations import Operation, ScaleOperation, get_operation
 from .samples import resolve_device
@@ -26,6 +37,67 @@ from .samples import resolve_device
 # flax's lecun_normal: a truncated normal in [-2, 2] scaled to unit variance
 # by the std of that truncation, .87962566103423978
 _TRUNCATED_STD = .87962566103423978
+
+
+def _all_reduce(x, group):
+    import torch.distributed as dist
+    x = x.clone()
+    dist.all_reduce(x, group=group)
+    return x
+
+
+class _Reduce(torch.autograd.Function):
+    """Sum over the ranks of ``group``; the gradient is passed on as it is
+    (``backward_sum`` False: the output feeds one computation replicated on
+    every rank, Megatron's g) or summed too (True: each rank's output feeds
+    its own part of a summed loss)."""
+
+    @staticmethod
+    def forward(ctx, x, group, backward_sum):
+        ctx.group, ctx.backward_sum = group, backward_sum
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_all_reduce(grad, ctx.group) if ctx.backward_sum else grad), None, None
+
+
+class _Copy(torch.autograd.Function):
+    """The identity, whose gradient is summed over ``group``: an input
+    replicated over the ranks, each using it for its own columns
+    (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
+
+
+class _GatherColumns(torch.autograd.Function):
+    """This rank's columns ``start:stop`` of a ``width``-column output put in
+    place in zeros and summed over ``group``: the whole output on every
+    rank; the gradient is this rank's columns of the output's."""
+
+    @staticmethod
+    def forward(ctx, x, group, start, stop, width):
+        ctx.start, ctx.stop = start, stop
+        full = x.new_zeros(x.shape[:-1] + (width,))
+        full[..., start:stop] = x
+        return _all_reduce(full, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[..., ctx.start:ctx.stop].contiguous(), None, None, None, None
+
+
+def _split(n, mesh, axis='tp'):
+    """(start, stop) of this rank's block of ``n`` over the mesh ``axis``."""
+    index = split_ranks(n, mesh.coordinate(axis), mesh.axis_size(axis))
+    return (index[0], index[-1] + 1) if index else (0, 0)
 
 
 class Dense(torch.nn.Module):
@@ -65,8 +137,19 @@ class BatchNorm(torch.nn.Module):
         self.register_buffer('mean', torch.zeros(features, dtype=torch.float32, device=device))
         self.register_buffer('var', torch.ones(features, dtype=torch.float32, device=device))
 
-    def forward(self, x):
-        if self.training:
+    def forward(self, x, rows=None, group=None):
+        """``group`` (the mesh's 'dp' group) and ``rows`` (the global batch's
+        row count): the statistics of the global batch, from the sums of x
+        and x^2 all-reduced over the group."""
+        if self.training and group is not None:
+            nfeat = x.shape[-1]
+            sums = _Reduce.apply(torch.cat([x.sum(0), (x * x).sum(0)]), group, True)
+            mean, meansq = sums[:nfeat] / rows, sums[nfeat:] / rows
+            var = torch.clamp(meansq - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean = self.momentum * self.mean + (1 - self.momentum) * mean
+                self.var = self.momentum * self.var + (1 - self.momentum) * var
+        elif self.training:
             mean = x.mean(0)
             var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
             with torch.no_grad():
@@ -81,18 +164,47 @@ class MLP(torch.nn.Module):
     """Dense network with the reference's activation set; optional batch
     normalization before each hidden-to-hidden Dense. Its submodules and
     parameters carry the flax names: 'layer_{i}' (kernel, bias),
-    'batch_{i}' (scale, bias; buffers mean, var), 'alpha_{i}', 'beta_{i}'."""
+    'batch_{i}' (scale, bias; buffers mean, var), 'alpha_{i}', 'beta_{i}'.
 
-    def __init__(self, fan_in, features, activation, batch_norm=False, device=None):
+    With a ``mesh`` (:class:`parallel.Mesh`) the module holds this rank's
+    shard: over 'tp', layer i's kernel is split along its output columns
+    (i even, with its bias) or along its rows (i odd), and a batch
+    normalization acts on the features that reach it (split before an odd
+    layer); 'dp' reduces the batch statistics (``forward(x, rows)``, the
+    global batch's row count). :meth:`shard` and :meth:`unshard` map a
+    tensor of the whole network to this rank's and back."""
+
+    def __init__(self, fan_in, features, activation, batch_norm=False, device=None, mesh=None):
         super().__init__()
         self.features = tuple(features)      # hidden sizes + (output size,)
         self.activation = tuple(activation)  # one name per hidden layer
         self.batch_norm = bool(batch_norm)
+        self.mesh = mesh
+        self._dp_group = mesh.group('dp') if mesh is not None else None
+        self._tp_group = mesh.group('tp') if mesh is not None else None
+        self._shards = {}   # name -> (axis, start, stop, full shape) of the sharded tensors
+        self._tp_scalars = []   # the activation scalars acting on split features
         nlayers = len(self.features)
         for ilayer, feat in enumerate(self.features):
+            split_in = split_out = None
+            if self._tp_group is not None:
+                if ilayer % 2 == 0:
+                    split_out = _split(feat, mesh)
+                else:
+                    split_in = _split(fan_in, mesh)
+            nin = fan_in if split_in is None else split_in[1] - split_in[0]
+            nout = feat if split_out is None else split_out[1] - split_out[0]
             if self.batch_norm and ilayer > 0:
-                setattr(self, f'batch_{ilayer}', BatchNorm(fan_in, device=device))
-            setattr(self, f'layer_{ilayer}', Dense(fan_in, feat, device=device))
+                setattr(self, f'batch_{ilayer}', BatchNorm(nin, device=device))
+                if split_in is not None:
+                    for leaf in ('scale', 'bias', 'mean', 'var'):
+                        self._shards[f'batch_{ilayer}.{leaf}'] = (0,) + split_in + ((fan_in,),)
+            setattr(self, f'layer_{ilayer}', Dense(nin, nout, device=device))
+            if split_out is not None:
+                self._shards[f'layer_{ilayer}.kernel'] = (1,) + split_out + ((fan_in, feat),)
+                self._shards[f'layer_{ilayer}.bias'] = (0,) + split_out + ((feat,),)
+            if split_in is not None:
+                self._shards[f'layer_{ilayer}.kernel'] = (0,) + split_in + ((fan_in, feat),)
             if ilayer < nlayers - 1:
                 name = self.activation[ilayer]
                 if name not in ('identity-silu', 'silu', 'relu', 'tanh'):
@@ -100,14 +212,23 @@ class MLP(torch.nn.Module):
                 if name == 'identity-silu':
                     for pname in (f'beta_{ilayer}', f'alpha_{ilayer}'):
                         setattr(self, pname, torch.nn.Parameter(torch.zeros((), dtype=torch.float64, device=device)))
+                        if split_out is not None:
+                            self._tp_scalars.append(pname)
             fan_in = feat
 
-    def forward(self, x):
+    def forward(self, x, rows=None):
         nlayers = len(self.features)
+        tp = self._tp_group
         for ilayer in range(nlayers):
             if self.batch_norm and ilayer > 0:
-                x = getattr(self, f'batch_{ilayer}')(x)
-            x = getattr(self, f'layer_{ilayer}')(x)
+                x = getattr(self, f'batch_{ilayer}')(x, rows=rows, group=self._dp_group)
+            layer = getattr(self, f'layer_{ilayer}')
+            if tp is None:
+                x = layer(x)
+            elif ilayer % 2 == 0:   # column-parallel: the input whole on every rank
+                x = layer(_Copy.apply(x, tp))
+            else:                   # row-parallel: the partial products summed, the bias once
+                x = _Reduce.apply(x @ layer.kernel, tp, False) + layer.bias
             if ilayer < nlayers - 1:
                 name = self.activation[ilayer]
                 if name == 'identity-silu':
@@ -119,7 +240,33 @@ class MLP(torch.nn.Module):
                     x = torch.clamp(x, min=0.0)
                 else:
                     x = torch.tanh(x)
+        if tp is not None and nlayers % 2 == 1:   # the last layer was column-parallel
+            _, start, stop, (_, width) = self._shards[f'layer_{nlayers - 1}.kernel']
+            x = _GatherColumns.apply(x, tp, start, stop, width)
         return x
+
+    def full_shape(self, name):
+        """The shape of state entry ``name`` in the whole network."""
+        return self._shards[name][3] if name in self._shards else tuple(self.state_dict()[name].shape)
+
+    def shard(self, name, value):
+        """This rank's part of ``value``, state entry ``name`` of the whole
+        network."""
+        if name not in self._shards:
+            return value
+        axis, start, stop, _ = self._shards[name]
+        return value[(slice(None),) * axis + (slice(start, stop),)]
+
+    def unshard(self, name, value):
+        """The whole of state entry ``name`` from this rank's part
+        ``value``, on every rank: the parts put in place in zeros and
+        summed over 'tp'."""
+        if name not in self._shards:
+            return value
+        axis, start, stop, shape = self._shards[name]
+        full = value.new_zeros(shape)
+        full[(slice(None),) * axis + (slice(start, stop),)] = value
+        return _all_reduce(full, self._tp_group)
 
 
 def get_state(model):
@@ -151,26 +298,29 @@ def set_state(model, state):
 def init_mlp(model, generator):
     """flax's initialization of ``model``, drawn on the CPU from the
     ``torch.Generator`` ``generator`` (so the same seed gives the same
-    network on every device): each kernel from lecun_normal, a normal of
-    std sqrt(1 / fan_in) / .8796 truncated at 2 std; biases, alpha and
+    network on every device, and on every mesh: the whole network is drawn
+    and each rank keeps its shard): each kernel from lecun_normal, a normal
+    of std sqrt(1 / fan_in) / .8796 truncated at 2 std; biases, alpha and
     beta 0; batch normalization scale 1, bias 0, mean 0 and var 1 (the
     running averages float32)."""
     state = {}
-    for name, tensor in model.state_dict().items():
+    for name in model.state_dict():
+        shape = model.full_shape(name)
         if name.endswith('kernel'):
-            draw = torch.empty(tensor.shape, dtype=torch.float64)
+            draw = torch.empty(shape, dtype=torch.float64)
             torch.nn.init.trunc_normal_(draw, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=generator)
-            state[name] = draw * (math.sqrt(1.0 / tensor.shape[0]) / _TRUNCATED_STD)
+            state[name] = draw * (math.sqrt(1.0 / shape[0]) / _TRUNCATED_STD)
         elif name.endswith(('.mean', '.var')):
-            state[name] = (torch.ones if name.endswith('var') else torch.zeros)(tensor.shape, dtype=torch.float32)
+            state[name] = (torch.ones if name.endswith('var') else torch.zeros)(shape, dtype=torch.float32)
         else:
-            state[name] = (torch.ones if name.endswith('scale') else torch.zeros)(tensor.shape, dtype=torch.float64)
-    return set_state(model, state)
+            state[name] = (torch.ones if name.endswith('scale') else torch.zeros)(shape, dtype=torch.float64)
+    return set_state(model, {name: model.shard(name, value) for name, value in state.items()})
 
 
 def load_flax_variables(model, params, batch_stats=None):
     """Copy the JAX package's flax ``params`` and ``batch_stats`` (nested
-    dicts of arrays) into ``model``, which must have the same layout."""
+    dicts of arrays, the whole network) into ``model``, which must have the
+    same layout; a sharded ``model`` keeps its rank's shard."""
     state = {}
     for variables in (params, batch_stats or {}):
         for name, value in variables.items():
@@ -178,18 +328,19 @@ def load_flax_variables(model, params, batch_stats=None):
                 state.update({f'{name}.{key}': item for key, item in value.items()})
             else:
                 state[name] = value
-    return set_state(model, state)
+    return set_state(model, {name: model.shard(name, value) for name, value in state.items()})
 
 
 def flax_variables(model):
     """(params, batch_stats): ``model``'s tensors as numpy arrays in the
     flax layout of the JAX package ('layer_{i}': {'kernel', 'bias'}, ...),
-    as :meth:`MLPEmulatorEngine._export_operations` takes them."""
+    as :meth:`MLPEmulatorEngine._export_operations` takes them; the whole
+    network on every rank of a sharded ``model``."""
     params, batch_stats = {}, {}
     for key, value in model.state_dict().items():
         name, _, leaf = key.partition('.')
         target = batch_stats if leaf in ('mean', 'var') else params
-        value = value.detach().cpu().numpy()
+        value = model.unshard(key, value.detach()).cpu().numpy()
         if leaf:
             target.setdefault(name, {})[leaf] = value
         else:
@@ -223,22 +374,62 @@ def make_train_step(model, optimizer, learning_rate, loss='mse'):
     """The train step ``step(x, y) -> loss``: the loss ('mse', or a
     callable ``loss(y_true, y_pred)`` on tensors) of the module in training
     mode, its gradient, and one Adam update at the schedule's rate for this
-    optimizer's update count. Reads nothing back to the host."""
-    compute_loss = mse if loss == 'mse' else loss
-    count = [0]
+    optimizer's update count. Reads nothing back to the host.
 
-    def step(x, y):
+    On a mesh (``model.mesh``), ``step(x, y, rows)`` takes this rank's
+    block of a global batch of ``rows`` rows; the loss is the mean squared
+    error of the global batch (this rank's sum of squares over the global
+    count, its gradient all-reduced over 'dp'), and the gradients of the
+    activation scalars acting on features split over 'tp' are summed over
+    'tp'."""
+    compute_loss = mse if loss == 'mse' else loss
+    mesh = getattr(model, 'mesh', None)
+    if mesh is not None and loss != 'mse':
+        raise ValueError('the sharded fit computes the mean squared error only')
+    count = [0]
+    params = list(model.parameters())
+    scalars = [getattr(model, name) for name in getattr(model, '_tp_scalars', [])]
+
+    def step(x, y, rows=None):   # rows: the global batch's, on a mesh
         if callable(learning_rate):
             for group in optimizer.param_groups:
                 group['lr'] = learning_rate(count[0])
         optimizer.zero_grad(set_to_none=True)
-        value = compute_loss(y, model(x))
-        value.backward()
+        if mesh is None:
+            value = compute_loss(y, model(x))
+            value.backward()
+        else:
+            value = ((y - model(x, rows=rows)) ** 2).sum() / (rows * y.shape[-1])
+            value.backward()
+            _sum_grads(scalars, model._tp_group)
+            _sum_grads(params, model._dp_group)
         optimizer.step()
         count[0] += 1
         return value
 
     return step
+
+
+def _global_mse(y_true, y_pred, rows, mesh):
+    """The mean squared error over a batch of ``rows`` rows whose blocks the
+    'dp' ranks hold, as rank 0 of the world computes it, on every rank."""
+    import torch.distributed as dist
+    value = ((y_true - y_pred) ** 2).sum() / (rows * y_true.shape[-1])
+    if mesh.group('dp') is not None:
+        value = _all_reduce(value, mesh.group('dp'))
+    if mesh.size > 1:
+        dist.broadcast(value, src=0)
+    return value
+
+
+def _sum_grads(params, group):
+    """Sum the gradients of ``params`` over ``group``, in one all_reduce."""
+    if group is None or not params:
+        return
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    flat = _all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+    for p, g in zip(params, flat.split([g.numel() for g in grads])):
+        p.grad = g.view_as(p)
 
 
 def _make_tuple(obj, length=None):
@@ -289,12 +480,19 @@ class MLPEmulatorEngine(BaseEmulatorEngine):
         initialized network before the first), and the stage stops after
         ``patience`` epochs without a better validation loss (a non-finite
         one counts as a stall). One host read an epoch: the validation
-        loss. :attr:`history` records each stage."""
-        if mesh is not None:
-            raise NotImplementedError('mesh= (the dp x tp sharded fit) is ROADMAP slice 6c, not ported yet')
+        loss. :attr:`history` records each stage.
+
+        ``mesh`` (``parallel.make_mesh()``, every rank calling this with the
+        same samples): the fit sharded over its ranks, on each rank's
+        device, every rank taking the same early-stopping decisions from
+        the global validation loss broadcast from rank 0; every rank
+        exports the whole network, the same operations as without a mesh
+        (up to the order of the sums)."""
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f'mesh must be the port\'s parallel.make_mesh(), not {type(mesh).__name__}')
         if optimizer != 'adam':
             raise ValueError(f'the port fits with adam only, not {optimizer!r}')
-        device = resolve_device(self.device)
+        device = mesh.device if mesh is not None else resolve_device(self.device)
         self.batch_norm = bool(batch_norm)
         list_batch_frac = _make_tuple(batch_frac)
         list_epochs = _make_tuple(epochs, length=len(list_batch_frac))
@@ -314,7 +512,9 @@ class MLPEmulatorEngine(BaseEmulatorEngine):
         Y_all = torch.as_tensor(np.asarray(Y, dtype=np.float64), device=device)
 
         model = MLP(X.shape[-1], self.nhidden + (Y.shape[-1],), self.activation, batch_norm=self.batch_norm,
-                    device=device)
+                    device=device, mesh=mesh)
+        # this rank's block of ``n`` rows: all of them without a mesh
+        block = (lambda n: slice(*_split(n, mesh, 'dp'))) if mesh is not None else (lambda n: slice(0, n))
         best = None
         self.history = []
         for bfrac, nepochs, lr, pat in zip(list_batch_frac, list_epochs, list_learning_rate, list_patience):
@@ -345,12 +545,17 @@ class MLPEmulatorEngine(BaseEmulatorEngine):
             best_loss, stall, losses = np.inf, 0, []
             for epoch in range(nepochs):
                 model.train()
+                mine = block(batch_size)
                 for ib in range(nbatch):
-                    sl = slice(ib * batch_size, (ib + 1) * batch_size)
-                    step(X_train[sl], Y_train[sl])
+                    sl = slice(ib * batch_size + mine.start, ib * batch_size + mine.stop)
+                    step(X_train[sl], Y_train[sl], rows=batch_size)
                 model.eval()
                 with torch.no_grad():
-                    loss = float(mse(Y_val, model(X_val)))
+                    if mesh is None:
+                        loss = float(mse(Y_val, model(X_val)))
+                    else:
+                        loss = float(_global_mse(Y_val[block(nvalidation)], model(X_val[block(nvalidation)]),
+                                                 nvalidation, mesh))
                 losses.append(loss)
                 if not np.isfinite(loss):  # divergence counts as a stall
                     stall += 1

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .. import utils
-from ..parallel.distributed import get_comm, split_ranks
+from ..parallel.distributed import get_comm, rank_device, split_ranks
 
 
 class CalculatorComputationError(Exception):
@@ -200,10 +200,18 @@ class BaseSampler(object):
         self.device = device
         self.samples = None
 
+    def _device(self):
+        """The device of this rank's chunks: the sampler's, else the
+        calculator's, else this rank's card (:func:`rank_device`, with
+        more than one rank) or the CUDA card."""
+        if self.device is None and getattr(self.calculator, 'device', None) is None and self.comm.Get_size() > 1:
+            return rank_device(self.comm.Get_rank())
+        return calculator_device(self.calculator, self.device)
+
     def _evaluate(self, points, lo, hi):
         """[(points, outputs or None)] of rows lo:hi: one call for the
         chunk, or one a row if the chunk raises."""
-        device = calculator_device(self.calculator, self.device)
+        device = self._device()
         chunk = {name: value[lo:hi] for name, value in points.items()}
         try:
             return [(chunk, evaluate_rows(self.calculator, chunk, device, reparam=self.reparam))]

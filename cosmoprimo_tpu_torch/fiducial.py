@@ -114,8 +114,8 @@ def AbacusSummit(name=0, engine=None, precision=None, extra_params=None, device=
     """Cosmology with AbacusSummit parameters (cosmology ``name``).
 
     The N_ur specification is recast into N_eff so that changes in m_ncdm
-    stay continuous. ``precision`` ('base': CLASS precision settings) only
-    concerns Boltzmann engines, which are not ported.
+    stay continuous. ``precision`` ('base': CLASS precision settings) is
+    taken and not used, as in the JAX package.
     """
     default_params = dict(k_pivot=0.05, neutrino_hierarchy=None, T_ncdm_over_cmb=constants.TNCDM_OVER_CMB, A_L=1.0)
     default_params.update(AbacusSummit_params(name=name))

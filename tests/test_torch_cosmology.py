@@ -144,8 +144,9 @@ def test_invalid_rows_are_nan():
 
 def test_not_ported_yet():
     """Massive neutrinos, the hierarchies and a JAX state with them are
-    ported, and so are the analytic engines (slice 4b) and the emulated
-    engine (slice 6a); the Boltzmann-code wrappers are not (slice 6d).
+    ported, and so are the analytic engines (slice 4b), the emulated engine
+    (slice 6a) and the Boltzmann-code wrappers (slice 6d), which raise
+    CosmologyInputError naming their host package where it is absent.
     'emulated' with no emulator file raises the JAX package's not-found
     CosmologyError."""
     assert Cosmology(engine='eisenstein_hu', m_ncdm=0.06, device='cpu')['N_ncdm'] == 1
@@ -154,8 +155,8 @@ def test_not_ported_yet():
     assert Cosmology.from_state(state, device='cpu')['N_ncdm'] == 1
     for engine in ('bbks', 'eisenstein_hu_nowiggle_variants'):
         assert Cosmology(engine=engine, device='cpu').engine.name == engine
-    for engine in ('class', 'camb'):
-        with pytest.raises(CosmologyInputError, match=f'Unknown engine {engine}'):
+    for engine, module in (('class', 'pyclass'), ('camb', 'camb')):
+        with pytest.raises(CosmologyInputError, match=f'{module} is required for engine'):
             Cosmology(engine=engine, device='cpu')
     with pytest.raises(jcp.CosmologyError, match='Emulator file None not found'):
         jcp.Cosmology(engine='emulated')

@@ -75,10 +75,11 @@ def test_factories_against_jax(name):
 
 def test_tabulated_not_ported(tmp_path, monkeypatch):
     """TabulatedDESI and save_TabulatedDESI are ported (tests/test_torch_
-    tabulated.py); the engine that made the shipped table, CLASS, is not
-    (slice 6): regenerating it with engine='class' raises before it writes."""
+    tabulated.py); the engine that made the shipped table, CLASS, wraps
+    pyclass, absent here: regenerating the table with engine='class' raises
+    before it writes."""
     assert fiducial.TabulatedDESI(device='cpu').engine.name == 'tabulated'
     monkeypatch.setattr(fiducial, '_DESI_filename', str(tmp_path / 'desi.dat'))
-    with pytest.raises(CosmologyInputError, match='Unknown engine class'):
+    with pytest.raises(CosmologyInputError, match='pyclass is required for engine'):
         fiducial.save_TabulatedDESI(engine='class', device='cpu')
     assert not (tmp_path / 'desi.dat').exists()

@@ -19,8 +19,9 @@ engine's staged fit, on the CPU, weights carried across as numpy.
   the same splits, batch sizes and epochs run in each stage, and the
   exported operations within 1e-9 of each array's max (measured <= 2.9e-13,
   with batch normalization).
-- flax's initialization distribution; ``mesh=`` refused; a fit in a process
-  where ``import jax`` fails.
+- flax's initialization distribution; a ``mesh=`` that is not the port's
+  ``parallel.make_mesh()`` refused (the sharded fit itself:
+  test_torch_sharded.py); a fit in a process where ``import jax`` fails.
 """
 
 import json
@@ -207,7 +208,7 @@ def test_initialization():
 def test_mesh_refused():
     engine = mlp.MLPEmulatorEngine(nhidden=(4,))
     engine.initialize(['a'], device='cpu')
-    with pytest.raises(NotImplementedError, match='6c'):
+    with pytest.raises(TypeError, match='make_mesh'):
         engine._fit_no_operation(np.zeros((10, 1)), np.zeros((10, 1)), {}, mesh=object())
 
 
