@@ -189,9 +189,29 @@ Phases, each failing the run (non-zero exit) if its check fails:
     calculate, getters) and the cosmosis module (a stub datablock) through
     a cosmology on the card, numpy out, against the CPU at 1e-12.
 
+27. the public API surface (slice 7): (a) PowerToCorrelation at the
+    headline shape (40 000, 1024 -> 2048) and its inv(): the kernel against
+    its plain version per row at 1e-12 on the forward and the inverted
+    factors (of each row's max before the postfactor: the inverted one,
+    k^-1.5, spans 21 decades of the padded grid); the round trip
+    inv(fwd(P)) within 1e-4 of P for 1e-3 < k < 1 h/Mpc (the band of the
+    CPU test, tests/test_torch_api_surface.py); the inverted transform,
+    which ran on the card before inv(), equal to one inverted before its
+    first call (inv() drops the factors made for the card) and to a fresh
+    CorrelationToPower on the s grid at 1e-12 per row before the
+    postfactor; (b) set_fft_engine('pallas') and 'fftw' launch the kernel,
+    'numpy' runs the plain version, each against the 'torch' engine at
+    1e-12 per row; (c) cosmoprimo_tpu_torch.quickstart on the card against
+    the same run on the CPU, each output at its bar (quickstart.BARS: P(k),
+    xi, the solved h 1e-10; distances and sigma8 1e-11); (d) loggamma and
+    gamma of complex128 tensors on the card against scipy at 1e-12,
+    gauss_legendre (tensor bounds on the card, and float bounds with an
+    integrand that moves its nodes to the card) and odeint on the card
+    against the CPU at 1e-13. Its wall is printed.
+
 Each of phases 14-17 prints its wall (median of 5 after a warm-up). The
 kernel's launches in the main-path runs of phases 4-8, 11, 14, 15, 18,
-21, 23, 24 (both ranks) and 25 are summed into the "kernels" line. The last line is {"ok": true, "device":
+21, 23, 24 (both ranks), 25 and 27 are summed into the "kernels" line. The last line is {"ok": true, "device":
 {...}}. Imports nothing of JAX.
 """
 
@@ -313,6 +333,13 @@ FIT_SCHEDULE = dict(batch_frac=(0.1, 0.5), epochs=(20, 10), learning_rate=(1e-2,
 FIT_RTOL = 1e-10           # sharded fit against the unsharded fit, each array's max
 WRAPPER_RTOL = 1e-12       # wrapper engines and bindings, card against CPU
 PARALLEL_TIMEOUT = 300     # s, a world's processes are killed after it
+# slice 7: phase 27, the public API surface
+# k in h/Mpc where inv(fwd(P)) gives P back on the headline grid, and the bar
+# there (tests/test_torch_api_surface.py::test_inv_round_trip_headline_grid)
+INV_BAND = (1e-3, 1.0)
+INV_RTOL = 1e-4
+SPECIAL_RTOL = 1e-12       # loggamma and gamma on the card against scipy
+OPS_RTOL = 1e-13           # gauss_legendre and odeint, card against CPU
 
 
 def _band(fiducial, rel=0.05, add=0.0):
@@ -2158,6 +2185,144 @@ def bindings(card):
     check(worst[0] <= WRAPPER_RTOL, 'the bindings disagree between the card and the CPU')
 
 
+def api_surface(fftlog_kernel, rng, card):
+    """Phase 27: the public API surface on the card. Returns the kernel's
+    launches in its main-path runs: the forward and inverted transforms, the
+    engine names and the quickstart on the card."""
+    from cosmoprimo_tpu_torch import CorrelationToPower, PowerToCorrelation, quickstart
+    from cosmoprimo_tpu_torch.ops import gamma, gauss_legendre, loggamma, odeint
+    from scipy import special
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    # (a) PowerToCorrelation at the headline shape, then inv()
+    k = np.geomspace(1e-5, 1e2, NK)
+    k_dev = torch.from_numpy(k).to(dev)
+    pk = pk_like(k_dev, torch.from_numpy(rng.uniform(0.5, 2.0, B)).to(dev),
+                 torch.from_numpy(rng.uniform(0.9, 1.0, B)).to(dev)).contiguous()
+    fft = PowerToCorrelation(k)
+    fresh = PowerToCorrelation(k)
+    fresh.inv()
+    errs = {}
+
+    def against_plain(name, transform, x):
+        """The kernel against plain per row, of each row's max before the
+        postfactor (the bar) and after it. The inverted postfactor k^-1.5
+        spans 21 decades of the padded grid and scales each column's rounding
+        by as much: two CPU FFT libraries differ by 3.2e-10 of a row's max
+        after it, by 6.4e-16 before it."""
+        arrays = transform._arrays(dev)
+        args = (arrays['padded_u'], arrays['padded_prefactor'], arrays['padded_postfactor'],
+                transform.padded_size_in_left, transform.padded_size_out_left)
+        got, ref = fftlog_kernel.fftlog_core(x, *args), fftlog_kernel.fftlog_core_torch(x, *args)
+        left = transform.padded_size_out_left
+        post = arrays['padded_postfactor'][:, left:left + x.shape[-1]]
+        errs[name] = (rel_err(got / post, ref / post), rel_err(got, ref))
+
+    fftlog_kernel.launches = 0
+    s, xi = fft(pk)
+    fft.inv()
+    k_back, pk_back = fft(xi)
+    fresh_k, fresh_pk = fresh(xi)
+    # the transform back is the Hankel pair's other half: CorrelationToPower
+    # on the s grid has the same u and the same pre x post, so it agrees to
+    # rounding (8.2e-16 before the postfactor on the CPU)
+    c2p_k, c2p_pk = CorrelationToPower(s.cpu().numpy())(xi)
+    launches = fftlog_kernel.launches
+    torch.cuda.synchronize()
+    check(launches == 4, f'the forward and inverted transforms took {launches} launches, not 4')
+    against_plain('inverted', fft, xi.contiguous())
+    fft.inv()
+    against_plain('forward', fft, pk)
+    band = (k > INV_BAND[0]) & (k < INV_BAND[1])
+    round_trip = ((pk_back - pk).abs() / pk.abs())[:, torch.from_numpy(band).to(dev)].max().item()
+    cache = (pk_back - fresh_pk).abs().max().item()
+    post = torch.from_numpy(fft.padded_postfactor[0, fft.padded_size_out_left:fft.padded_size_out_left + NK]).to(dev)
+    c2p = rel_err(pk_back / post, c2p_pk / post)
+    print(f'api (a): PowerToCorrelation ({B}, {NK} -> 2048) and inv(): the kernel against plain per row, before '
+          f'the postfactor, forward {errs["forward"][0]:.3e}, inverted {errs["inverted"][0]:.3e} (bar '
+          f'{KERNEL_BAR:g}; after it {errs["forward"][1]:.3e}, {errs["inverted"][1]:.3e}); the round trip in '
+          f'{INV_BAND[0]:g} < k < {INV_BAND[1]:g} {round_trip:.3e} (bar {INV_RTOL:g}); the grid back '
+          f'{np.max(np.abs(k_back.cpu().numpy() / k - 1)):.3e}; a transform called before inv() against one '
+          f'inverted before its first call: {cache:.3e}, against a fresh CorrelationToPower on the s grid '
+          f'{c2p:.3e} per row before the postfactor (bar {KERNEL_BAR:g})', flush=True)
+    check(max(err[0] for err in errs.values()) <= KERNEL_BAR and errs['forward'][1] <= KERNEL_BAR,
+          'the kernel disagrees with plain on the forward or the inverted transform')
+    check(round_trip <= INV_RTOL, 'the inverted transform does not give P(k) back')
+    check(cache == 0.0 and torch.equal(k_back, fresh_k), 'inv() kept the factors made before it for the card')
+    check(c2p <= KERNEL_BAR and rel_err(c2p_k[None], k_back[None]) <= KERNEL_BAR,
+          'the inverted transform disagrees with CorrelationToPower')
+    # (b) the reference engine names: 'pallas' and 'fftw' launch the kernel, 'numpy' runs the plain version
+    plain = PowerToCorrelation(k, engine='torch')(pk[:N_COMPARE])[1]
+    for name, want in (('pallas', 1), ('fftw', 1), ('numpy', 0)):
+        fft.set_fft_engine(name)
+        fftlog_kernel.launches = 0
+        got = fft(pk[:N_COMPARE])[1]
+        n = fftlog_kernel.launches
+        launches += n
+        err = rel_err(got, plain)
+        print(f"api (b): set_fft_engine('{name}') -> '{fft.engine}', {n} kernel launches, against the 'torch' "
+              f'engine {err:.3e} per row', flush=True)
+        check(n == want, f"set_fft_engine('{name}') took {n} kernel launches, not {want}")
+        check(err <= KERNEL_BAR, f"set_fft_engine('{name}') disagrees with the 'torch' engine")
+    # (c) the quickstart on the card against the CPU
+    t1 = time.perf_counter()
+    fftlog_kernel.launches = 0
+    on_card = quickstart.main(['--device', 'cuda'])
+    n = fftlog_kernel.launches
+    launches += n
+    wall_card = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    on_cpu = quickstart.main(['--device', 'cpu'])
+    wall_cpu = time.perf_counter() - t1
+    check(n > 0, 'the quickstart on the card did not launch the FFTLog kernel')
+    worst = (-1.0, '')
+    for name, bar in quickstart.BARS.items():
+        got, ref = on_card[name], on_cpu[name]
+        check(got.shape == ref.shape and np.isfinite(got).all(), f'quickstart output {name}')
+        err = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+        check(err <= bar, f'quickstart output {name} on the card is {err:.3e} from the CPU (bar {bar:g})')
+        worst = max(worst, (err / bar, name), key=lambda item: item[0])
+    print(f'api (c): the quickstart on the card {wall_card:.1f} s, {n} kernel launches; on the CPU {wall_cpu:.1f} s; '
+          f'{len(quickstart.BARS)} outputs against the CPU, the worst {worst[1]} at {worst[0]:.3e} of its bar',
+          flush=True)
+    # (d) loggamma and gamma against scipy, gauss_legendre and odeint against the CPU
+    z = np.concatenate([rng.uniform(-8, 8, 200) + 1j * rng.uniform(-400, 400, 200),
+                        rng.uniform(-8, 8, 200) + 1j * rng.uniform(-3, 3, 200),
+                        rng.uniform(0.5, 5, 100) + 1j * rng.uniform(-50, 50, 100)])
+    zc = rng.uniform(-4.5, 4.5, 200) + 1j * rng.uniform(-3, 3, 200)
+    lg = loggamma(torch.from_numpy(z).to(dev)).cpu().numpy()
+    ref = special.loggamma(z)
+    lg_err = float(np.max(np.abs(lg - ref) / np.maximum(np.abs(ref), 1e-10)))
+    g_err = float(np.max(np.abs(gamma(torch.from_numpy(zc).to(dev)).cpu().numpy() / special.gamma(zc) - 1)))
+    a, b = torch.from_numpy(rng.uniform(0.0, 1.0, 64)), torch.from_numpy(rng.uniform(2.0, 3.0, 64))
+    t = torch.linspace(0.0, 2.0, 201, dtype=torch.float64)
+    y0 = torch.from_numpy(rng.uniform(0.5, 1.5, 16))
+
+    def quad(device):
+        return gauss_legendre(lambda x: torch.exp(-x) * torch.cos(3 * x), a.to(device), b.to(device))
+
+    def ode(device):
+        return odeint(lambda y, tt: -0.5 * y * tt + torch.sin(tt), y0.to(device), t.to(device))
+
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, 8))
+
+    def quad_floats(device):   # float bounds: the nodes on the CPU, the integrand's values on ``device``
+        return gauss_legendre(lambda x: torch.sin(x.to(device)[:, None] * w.to(device)), 0.1, 2.0)
+
+    on_card = quad_floats(dev)
+    check(on_card.device.type == dev.type, 'gauss_legendre with float bounds left the integrand\'s device')
+    quad_err = max(rel_err(quad(dev).cpu()[None], quad('cpu')[None]),
+                   rel_err(on_card.cpu()[None], quad_floats('cpu')[None]))
+    ode_err = rel_err(ode(dev).cpu().T, ode('cpu').T)
+    print(f'api (d): loggamma on {z.size} complex128 points against scipy {lg_err:.3e}, gamma {g_err:.3e} (bar '
+          f'{SPECIAL_RTOL:g}); gauss_legendre on 64 intervals {quad_err:.3e}, odeint rk4 on 16 lanes x 201 steps '
+          f'{ode_err:.3e}, the card against the CPU (bar {OPS_RTOL:g})', flush=True)
+    check(lg_err <= SPECIAL_RTOL and g_err <= SPECIAL_RTOL, 'loggamma or gamma disagrees with scipy on the card')
+    check(quad_err <= OPS_RTOL and ode_err <= OPS_RTOL, 'gauss_legendre or odeint disagrees with the CPU')
+    print(f'phase 27: {time.perf_counter() - t0:.1f} s, kernel launches {launches} on {card}', flush=True)
+    return launches
+
+
 def kernel_bound_ms(x, args):
     """The least time the card could take for one call of the core on ``x``
     (rows, size) with ``args``: each input read once and the output written
@@ -2414,6 +2579,9 @@ def main():
     launches += wrapper_engines(fftlog_kernel, card)
     bindings(card)
     print(f'phases 24-26: {time.perf_counter() - t0:.1f} s', flush=True)
+
+    # 27. the public API surface
+    launches += api_surface(fftlog_kernel, rng, card)
 
     print(json.dumps({'kernels': [{
         'name': 'fftlog_core', 'route': 'cuda', 'source': 'cosmoprimo_tpu_torch/csrc/fftlog_core.cu',

@@ -7,10 +7,13 @@ csrc/fftlog_core.cu). This package imports neither JAX nor cosmoprimo_tpu.
 """
 
 from . import constants
-from .cosmology import Cosmology, CosmologyComputationError, CosmologyError, CosmologyInputError
+from .cosmology import (Background, BaseEngine, BaseSection, Cosmology, CosmologyComputationError, CosmologyError,
+                        CosmologyInputError, Fourier, Harmonic, Perturbations, Primordial, Thermodynamics, Transfer,
+                        get_engine)
 from .fftlog import (CorrelationToPower, FFTlog, GaussianVariance, HankelTransform, PowerToCorrelation,
                      TophatVariance)
 from .bao_filter import CorrelationFunctionBAOFilter, PowerSpectrumBAOFilter
+from . import fiducial
 from .fiducial import (DESI, AbacusSummit, BOSS, DESIDR2Flatw0waCDM, Planck2018FullFlatLCDM, TabulatedDESI, Uchuu,
                        save_TabulatedDESI)
 from .interpolator import (CorrelationFunctionInterpolator1D, CorrelationFunctionInterpolator2D,

@@ -229,12 +229,12 @@ def _projection(src, S, k_f, q_shift, tables, ells, n_quad_late, dtype, rows):
         yield i, jl, _hermite(basis, jp_tab[i], jpp_nodes * dx)
 
 
-def _fine_grid(src, kmin_fn):
+def _fine_grid(src, kmin_fn, dk=DK_FINE):
     """The fine k grid (a tensor) of the sources' coarse grid, with the k
-    floor their curvatures share."""
+    floor their curvatures share and the spacing ``dk`` at high k."""
     k_c = src['k'][0]
     kmin = shared_kmin(src['K'].cpu().numpy(), kmin_fn)
-    return torch.from_numpy(fine_k_grid(float(k_c[-1]), kmin=kmin)).to(k_c.device)
+    return torch.from_numpy(fine_k_grid(float(k_c[-1]), dk=dk, kmin=kmin)).to(k_c.device)
 
 
 def _wlens(src, chi):
@@ -247,25 +247,31 @@ def _wlens(src, chi):
                        -2.0 * sin_K(chi_star - chi, K) / (sin_K(chi_star, K) * torch.clamp(sk, min=1e-12)), 0.0), sk
 
 
-def project_sources(src, ell_list, tables, dtype=None, n_quad_late=N_QUAD_LATE):
+def project_sources(src, ell_list, tables, dtype=None, t_parts=(1.0, 1.0, 1.0, 1.0), dk_fine=DK_FINE,
+                    n_quad_late=N_QUAD_LATE):
     """Line-of-sight projection and C_l quadrature at each sampled multipole.
 
     ``src``: :func:`~.perturbations.compute_los_sources` on the coarse k grid
     (the rows' k the same), with 'P_R_params' (n_s, A_s, k_pivot, alpha_s,
     beta_s, each (B,)) and 'K' (B, 1) [1/Mpc^2]. ``tables``: (x_grid, j, jp)
     from :func:`~.bessel.bessel_tables` for ``ell_list``. ``dtype``: the
-    projection's float type (default that of the sources). Returns a dict
-    of (B, n_ell) raw C_l: tt, ee, te, pp, tp, ep.
+    projection's float type (default that of the sources). ``t_parts``
+    weighs the temperature source's monopole, Doppler, polarisation and ISW
+    terms (a diagnostic: 0 switches one off); ``dk_fine`` is the fine k
+    grid's spacing at high k (:func:`fine_k_grid`). Returns a dict of
+    (B, n_ell) raw C_l: tt, ee, te, pp, tp, ep.
 
     Memory: per multipole ~24 (rows, n_k_fine, n_tau) blocks, the rows cut
     into chunks of at most PROJECTION_BYTES."""
-    k_f = _fine_grid(src, cl_kmin)
+    k_f = _fine_grid(src, cl_kmin, dk_fine)
     tau_h, eta0, g, emk = src['tau'], src['eta0'], src['g'], src['emk']
     B = tau_h.shape[0]
     mono, dopp, pol, isw, weyl = src['src'].unbind(2)
     g3, emk3 = g[:, None, :], emk[:, None, :]
     wlens = _wlens(src, eta0 - tau_h)[0]
-    S = torch.stack([g3 * mono + emk3 * isw, g3 * dopp, 0.75 * g3 * pol, weyl * wlens[:, None, :]], dim=2)              # (B, nk_c, 4, n_h)
+    w_mono, w_dopp, w_pol, w_isw = t_parts
+    S = torch.stack([w_mono * g3 * mono + w_isw * emk3 * isw, w_dopp * g3 * dopp, w_pol * 0.75 * g3 * pol,
+                     weyl * wlens[:, None, :]], dim=2)              # (B, nk_c, 4, n_h)
     ells = np.asarray(ell_list, dtype=np.float64)
     pr = (_trapz_weights(k_f) / k_f) * 4.0 * np.pi * _primordial(src['P_R_params'], k_f.expand(B, -1))
     out = torch.zeros((6, B, ells.size), dtype=torch.float64, device=k_f.device)
@@ -327,7 +333,7 @@ def _spline_to_integers(ells, cl, lmax):
     return Di / (ell_i * (ell_i + 1.0))
 
 
-def _cl_inputs(params, thermo, lmax, kmax=None, kmax_pp=None, graphs=True):
+def _cl_inputs(params, thermo, lmax, kmax=None, kmax_pp=None, graphs=True, ells=None):
     """The grids and sources of :func:`compute_cls`: returns (src, src_main,
     ells, tables, n_quad_late), ``src`` the sources on the whole coarse grid
     (with 'P_R_params' and 'K'), ``src_main`` on its main (TT-sized) part."""
@@ -335,7 +341,7 @@ def _cl_inputs(params, thermo, lmax, kmax=None, kmax_pp=None, graphs=True):
         kmax = max(0.12, 2.4 * lmax / 13000.0)
     if kmax_pp is None:
         kmax_pp = max(kmax, lmax / 2100.0)
-    ells = bessel.default_ells(lmax)
+    ells = bessel.default_ells(lmax) if ells is None else np.asarray(ells)
     # the late tau quadrature scales with lmax: the j_l(k chi) period is 2 pi / k
     n_quad_late = max(N_QUAD_LATE, int(0.82 * lmax))
     K = _curvature(params)
@@ -357,7 +363,7 @@ def _cl_inputs(params, thermo, lmax, kmax=None, kmax_pp=None, graphs=True):
     return src, src_main, ells, tables, n_quad_late
 
 
-def compute_cls(params, thermo, lmax=2500, kmax=None, dtype=None, kmax_pp=None, graphs=True):
+def compute_cls(params, thermo, lmax=2500, kmax=None, ells=None, dtype=None, kmax_pp=None, graphs=True):
     """Unlensed scalar CMB spectra of a batch, natively integrated.
 
     ``params`` and ``thermo`` as :func:`~.perturbations.build_tables` (with
@@ -368,10 +374,13 @@ def compute_cls(params, thermo, lmax=2500, kmax=None, dtype=None, kmax_pp=None, 
     ``kmax`` bounds the TT/EE/TE projection (default max(0.12, 2.4 lmax /
     13000) /Mpc); ``kmax_pp`` (default max(kmax, lmax / 2100)) extends the
     coarse hierarchy grid with a 4%-log tail for the Limber lensing
-    potential only. The sources run at the full step budget; ``graphs`` as
-    :func:`~.perturbations.integrate_perturbations`. The rows share one k
-    grid, so their curvatures must give one (else NotImplementedError)."""
-    src, src_main, ells, tables, n_quad_late = _cl_inputs(params, thermo, lmax, kmax, kmax_pp, graphs)
+    potential only. ``ells`` (default :func:`~.bessel.default_ells` of
+    ``lmax``) are the multipoles projected, then splined to every integer;
+    'ells_sampled' echoes them. The sources run at the full step budget;
+    ``graphs`` as :func:`~.perturbations.integrate_perturbations`. The rows
+    share one k grid, so their curvatures must give one (else
+    NotImplementedError)."""
+    src, src_main, ells, tables, n_quad_late = _cl_inputs(params, thermo, lmax, kmax, kmax_pp, graphs, ells)
     # the exact projection on the main (TT-sized) k grid only
     raw = project_sources(src_main, ells, tables, dtype=dtype, n_quad_late=n_quad_late)
     # the lensing potential: Limber at high l

@@ -935,12 +935,12 @@ def _emitting_run(params, thermo, k, n_steps, graphs, emitters, rates=(None, Non
     return run, srcA, srcB
 
 
-def compute_los_sources(params, thermo, k, n_steps=None, graphs=True):
+def compute_los_sources(params, thermo, k, z_nodes=None, n_steps=None, graphs=True):
     """Line-of-sight CMB sources of a batch on a common conformal-time grid
     per cosmology (Seljak & Zaldarriaga 1996). The two-phase integration of
     :func:`integrate_perturbations` taps five rows at every step, then each
     lane's series goes from its own step grid onto the grid ``tau`` made from
-    the redshift template :func:`_los_z_nodes`:
+    the redshift template ``z_nodes`` (default :func:`_los_z_nodes`):
 
     0. mono = Theta_0 + psi + Pi/4 (multiplies g j_l), with Pi = Theta_2 +
        (G_0 + G_2)/4 = (F_g2 + G_0 + G_2)/4 in temperature units;
@@ -957,7 +957,7 @@ def compute_los_sources(params, thermo, k, n_steps=None, graphs=True):
     run, srcA, srcB = _emitting_run(params, thermo, k, n_steps, graphs, (_emit_los_a, _emit_los_b),
                                      (_psi_rates_a, _psi_rates_b))
     tabs = run['tabs']
-    tau_h = _tau_nodes(tabs, _los_z_nodes())
+    tau_h = _tau_nodes(tabs, _los_z_nodes() if z_nodes is None else z_nodes)
     src = _onto_tau(tau_h, (run['eta_A'], run['eta_B']), (srcA, srcB))
     c_h = _fetch(tabs, tau_h)
     B = tau_h.shape[0]
@@ -969,7 +969,7 @@ def compute_los_sources(params, thermo, k, n_steps=None, graphs=True):
             'k': k}
 
 
-def compute_perturbation_series(params, thermo, k, n_steps=None, graphs=True):
+def compute_perturbation_series(params, thermo, k, z_nodes=None, n_steps=None, graphs=True):
     """Newtonian-gauge perturbation series of each mode of a batch, from the
     per-lane step grids onto a common conformal-time grid per cosmology (the
     per-k table CLASS's ``get_perturbations`` gives). Arguments as
@@ -980,7 +980,7 @@ def compute_perturbation_series(params, thermo, k, n_steps=None, graphs=True):
     'names'."""
     run, srcA, srcB = _emitting_run(params, thermo, k, n_steps, graphs, (_emit_series_a, _emit_series_b))
     tabs = run['tabs']
-    tau_h = _tau_nodes(tabs, _los_z_nodes())
+    tau_h = _tau_nodes(tabs, _los_z_nodes() if z_nodes is None else z_nodes)
     series = _onto_tau(tau_h, (run['eta_A'], run['eta_B']), (srcA, srcB))
     a_h = torch.exp(interp(torch.log(tau_h), tabs['lneta'], tabs['lna']))
     return {'tau': tau_h, 'a': a_h, 'k': k, 'series': series, 'names': PERTURBATION_NAMES}

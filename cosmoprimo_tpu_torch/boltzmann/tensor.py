@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from . import bessel
-from .harmonic import (KMIN, N_REC, _curvature, _fine_grid, _projection, _row_chunks, _spline_to_integers,
+from .harmonic import (DK_FINE, KMIN, N_REC, _curvature, _fine_grid, _projection, _row_chunks, _spline_to_integers,
                        _trapz_weights, _x_max, coarse_k_grid, shared_kmin)
 from .perturbations import (TCA_TRIGGER_AH, TCA_TRIGGER_K, _cum_density, _fetch, _grid_on, _onto_tau, _rk4_loop,
                             _tau_nodes, _thermo, build_tables, interp)
@@ -173,11 +173,12 @@ def _tensor_z_nodes(n_rec=512, n_mid=192, n_reio=256, n_late=512):
     return np.concatenate([z_rec, z_mid, z_reio, z_late])
 
 
-def compute_tensor_sources(params, thermo, k, graphs=True):
+def compute_tensor_sources(params, thermo, k, z_nodes=None, graphs=True):
     """Integrate the tensor system on each lane's grid and tap the two
     line-of-sight rows [h', Psi] per step, onto the shared tau grid of each
-    cosmology. ``k`` (B, nk) in 1/Mpc; ``params`` and ``thermo`` as
-    :func:`~.perturbations.build_tables`; ``graphs`` replays the loop from
+    cosmology (made from the redshift template ``z_nodes``, default
+    :func:`_tensor_z_nodes`). ``k`` (B, nk) in 1/Mpc; ``params`` and
+    ``thermo`` as :func:`~.perturbations.build_tables`; ``graphs`` replays the loop from
     CUDA graphs on the card. Returns {'tau' (B, n_tau), 'src'
     (B, nk, 2, n_tau), 'g', 'emk' (B, n_tau), 'eta0' (B, 1), 'k'}."""
     tabs = build_tables(params, thermo)
@@ -186,7 +187,7 @@ def compute_tensor_sources(params, thermo, k, graphs=True):
     y0[_I_H] = 1.0                            # h(0) = 1, h'(0) = 0, the towers 0
     _, _, src_steps = _rk4_loop(deriv_tensor, _coefs_t, _project_t, y0, eta_g, tabs, TensorLanes(k), graphs,
                                 emit=_emit_t)
-    tau_h = _tau_nodes(tabs, _tensor_z_nodes())
+    tau_h = _tau_nodes(tabs, _tensor_z_nodes() if z_nodes is None else z_nodes)
     src = _onto_tau(tau_h, (eta_g,), (src_steps,))
     c_h = _fetch(tabs, tau_h)
     B = tau_h.shape[0]
@@ -195,14 +196,15 @@ def compute_tensor_sources(params, thermo, k, graphs=True):
     return {'tau': tau_h, 'src': src, 'g': c_h['kp'] * emk, 'emk': emk, 'eta0': tabs['eta0'], 'k': k}
 
 
-def project_tensor_sources(src, ell_list, tables, P_T, n_quad_late=1664):
+def project_tensor_sources(src, ell_list, tables, P_T, dk_fine=DK_FINE, n_quad_late=1664):
     """Line-of-sight projection and C_l quadrature of the tensor sources at
     each sampled multipole. ``src``: :func:`compute_tensor_sources` on the
     coarse k grid (the rows' k the same), with 'K' (B, 1) [1/Mpc^2];
     ``P_T``: the primordial tensor power, a function of the fine k grid
-    (nK,) -> (B, nK). Returns a dict of (B, n_ell) raw C_l: tt, ee, bb, te.
-    Memory as :func:`~.harmonic.project_sources`."""
-    k_f = _fine_grid(src, tensor_cl_kmin)
+    (nK,) -> (B, nK); ``dk_fine`` the fine grid's spacing at high k. Returns
+    a dict of (B, n_ell) raw C_l: tt, ee, bb, te. Memory as
+    :func:`~.harmonic.project_sources`."""
+    k_f = _fine_grid(src, tensor_cl_kmin, dk_fine)
     hp, Psi = src['src'].unbind(2)
     g, emk = src['g'][:, None, :], src['emk'][:, None, :]
     S = torch.stack([-0.5 * emk * hp + g * Psi, g * Psi], dim=2)   # (B, nk_c, 2, n_h)
@@ -226,16 +228,17 @@ def project_tensor_sources(src, ell_list, tables, P_T, n_quad_late=1664):
     return dict(zip(('tt', 'ee', 'bb', 'te'), out))
 
 
-def compute_tensor_cls(params, thermo, lmax=600, kmax=None, graphs=True):
+def compute_tensor_cls(params, thermo, lmax=600, kmax=None, ells=None, graphs=True):
     """Tensor-mode CMB spectra of a batch: 'tt', 'ee', 'bb', 'te' (B, lmax + 1),
     raw dimensionless C_l, zero at l = 0, 1, and 'ell', 'ells_sampled',
     'raw_sampled'. ``params`` needs the scalar solver's keys and 'r' (and
     'n_t', 'alpha_t'), each (B,); P_T is proportional to r, so rows with
-    r = 0 get exactly zero. The rows share one k grid (see
-    :func:`~.harmonic.compute_cls`)."""
+    r = 0 get exactly zero. ``ells`` (default :func:`~.bessel.default_ells`
+    of ``lmax``) are the multipoles projected, echoed as 'ells_sampled'. The
+    rows share one k grid (see :func:`~.harmonic.compute_cls`)."""
     if kmax is None:
         kmax = max(0.05, 1.7 * lmax / 13000.0)
-    ells = bessel.default_ells(lmax)
+    ells = bessel.default_ells(lmax) if ells is None else np.asarray(ells)
     K = _curvature(params)
     h = params['h']
     B = h.shape[0]

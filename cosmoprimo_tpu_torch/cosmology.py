@@ -1069,6 +1069,24 @@ for _section in _Sections:
     setattr(Cosmology, 'get_{}'.format(_section.lower()), _make_cosmo_getter(_section.lower()))
 
 
+def _make_module_section_getter(section):
+    def getter(cosmology, engine=None, set_engine=True, **extra_params):
+        engine_obj = cosmology.set_engine(engine, set_engine=set_engine, **extra_params)
+        return engine_obj.get_section(section)
+    getter.__doc__ = (f'Return {section} calculations for ``cosmology``, with a new engine if ``engine`` is given '
+                      '(kept by the cosmology unless ``set_engine`` is False).')
+    return getter
+
+
+Background = _make_module_section_getter('background')
+Thermodynamics = _make_module_section_getter('thermodynamics')
+Primordial = _make_module_section_getter('primordial')
+Perturbations = _make_module_section_getter('perturbations')
+Transfer = _make_module_section_getter('transfer')
+Harmonic = _make_module_section_getter('harmonic')
+Fourier = _make_module_section_getter('fourier')
+
+
 # ----------------------------------------------------------------------------
 # Sections
 # ----------------------------------------------------------------------------

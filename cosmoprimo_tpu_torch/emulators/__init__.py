@@ -17,7 +17,12 @@ from math import comb
 import numpy as np
 import torch
 
-from ..ops import cubic_eval_rows, natural_cubic_coeffs_rows
+# Cosmology, PowerSpectrumInterpolator1D, Interpolator1D, setup_logging and
+# MLP are re-exported, as the JAX package's namespace does
+from ..cosmology import Cosmology
+from ..interpolator import PowerSpectrumInterpolator1D
+from ..ops import Interpolator1D, cubic_eval_rows, natural_cubic_coeffs_rows
+from ..utils import setup_logging
 from .base import (BaseEmulatorEngine, Emulator as _BaseEmulator, EmulatedCalculator, PointEmulatorEngine,
                    batch_vmap, find_names, get_engine, make_list)
 from .operations import (ArcsinhOperation, ChebyshevOperation, FourierUnitOperation, Log10Operation, NormOperation,
@@ -25,7 +30,7 @@ from .operations import (ArcsinhOperation, ChebyshevOperation, FourierUnitOperat
                          get_operation, register_operation)
 from .samples import (BaseSampler as _BaseSampler, CalculatorComputationError, DiffSampler as _DiffSampler,
                       GridSampler as _GridSampler, InputSampler as _InputSampler, QMCSampler as _QMCSampler, Samples)
-from .mlp import MLPEmulatorEngine
+from .mlp import MLP, MLPEmulatorEngine
 from .taylor import TaylorEmulatorEngine
 from .emulated import (CAPSEEngine, CambMnuW0WaCMBEngine, CosmopowerBolliet2023Engine, CosmopowerJense2024Engine,
                        EmulatedEngine)
@@ -333,4 +338,5 @@ __all__ = ['Emulator', 'EmulatedCalculator', 'get_calculator', 'BaseSampler', 'I
            'FourierUnitOperation', 'HarmonicNormOperation', 'FourierNormOperation', 'Samples',
            'CalculatorComputationError', 'EmulatedEngine', 'CAPSEEngine', 'CosmopowerBolliet2023Engine',
            'CambMnuW0WaCMBEngine', 'CosmopowerJense2024Engine', 'batch_vmap', 'mask_subsample', 'smoothstep',
-           'find_names', 'get_engine', 'get_operation', 'make_list', 'register_operation']
+           'find_names', 'get_engine', 'get_operation', 'make_list', 'register_operation', 'Cosmology', 'MLP',
+           'PowerSpectrumInterpolator1D', 'Interpolator1D', 'setup_logging']

@@ -180,11 +180,14 @@ class FFTlog(object):
     unfused ``torch.fft`` in complex128, and ``'auto'`` means ``'kernel'``
     for a CUDA tensor and ``'torch'`` for a CPU tensor. Every engine takes a
     complex postfactor and is differentiable in reverse and forward mode.
+    The reference's names are taken too (:meth:`set_fft_engine`).
+    ``check_level`` is accepted for the reference's signature and not read.
     """
 
-    def __init__(self, x, kernel, q=0, minfolds=2, lowring=True, xy=1, engine='auto'):
+    def __init__(self, x, kernel, q=0, minfolds=2, lowring=True, xy=1, check_level=0, engine='auto',
+                 **engine_kwargs):
         self.inparallel = isinstance(kernel, (tuple, list))
-        self.set_fft_engine(engine)
+        self.set_fft_engine(engine, **engine_kwargs)
         kernels = list(kernel) if self.inparallel else [kernel]
         nk = len(kernels)
         if np.ndim(q) == 0:
@@ -201,12 +204,20 @@ class FFTlog(object):
         self._setup(kernels, list(q), minfolds=minfolds, lowring=lowring, xy=list(xy), shared_x=shared_x)
         self._device_arrays = {}
 
-    def set_fft_engine(self, engine='auto'):
+    def set_fft_engine(self, engine='auto', **engine_kwargs):
         """Select the FFT engine used by :meth:`__call__`: 'auto', 'kernel'
-        or 'torch' (see the class docstring)."""
+        or 'torch' (see the class docstring), or a name of the JAX package
+        or of the reference: 'numpy' and 'pair' (a plain FFT) are 'torch',
+        'fftw' (the fastest FFT) is 'auto', 'pallas' (the fused kernel) is
+        'kernel'. Another name raises ValueError. ``engine_kwargs`` are kept
+        as :attr:`engine_kwargs`; the CUDA kernel reads none of them (the
+        JAX package's ``block`` is a TPU tiling)."""
+        engine = _ENGINE_NAMES.get(str(engine), str(engine))
         if engine not in ('auto', 'kernel', 'torch'):
-            raise ValueError(f'unknown FFT engine {engine!r}; choose from auto/kernel/torch')
+            raise ValueError(f'unknown FFT engine {engine!r}; choose from auto/kernel/torch '
+                             '(or numpy/pair/fftw/pallas)')
         self.engine = engine
+        self.engine_kwargs = dict(engine_kwargs)
 
     @property
     def nparallel(self):
@@ -277,6 +288,9 @@ class FFTlog(object):
         multipoles) runs the kernel twice, with its real and its imaginary
         part: the kernel writes real rows, and the output is a real row
         times the postfactor, so the two parts are exact."""
+        if np.iscomplexobj(self.padded_prefactor):
+            raise ValueError('a complex prefactor (the inverse of a complex=True transform) is not supported: '
+                             'the transform takes real rows')
         fun = torch.as_tensor(fun, dtype=torch.float64)
         arrays = self._arrays(fun.device)
         engine = self.engine
@@ -306,6 +320,21 @@ class FFTlog(object):
         if not self.inparallel:
             y = y[0]
         return y, out.reshape(shape + out.shape[-1:])
+
+    def inv(self):
+        """Swap the direction of the transform in place: x and y, the padded
+        grids, the pre- and postfactors (each the other's inverse) and the
+        Mellin coefficients (1 / conj(u)). The tensors made for a device
+        (:meth:`_arrays`) are dropped, so the next call makes them anew."""
+        self.x, self.y = self.y, self.x
+        self.padded_x, self.padded_y = self.padded_y, self.padded_x
+        self.padded_prefactor, self.padded_postfactor = 1 / self.padded_postfactor, 1 / self.padded_prefactor
+        self.padded_u = 1 / self.padded_u.conj()
+        self._device_arrays = {}
+
+
+#: The engine names of the JAX package and of the reference, as the port's.
+_ENGINE_NAMES = {'numpy': 'torch', 'pair': 'torch', 'fftw': 'auto', 'pallas': 'kernel'}
 
 
 class HankelTransform(FFTlog):

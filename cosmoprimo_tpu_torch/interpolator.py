@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from .fftlog import CorrelationToPower, PowerToCorrelation, TophatVariance
-from .ops import Interpolator1D, Interpolator2D, batch_scalar, leggauss, romberg, simpson
+from .ops import Interpolator1D, Interpolator2D, batch_scalar, bcast_dtype, leggauss, romberg, simpson  # noqa: F401
+from .ops.spline import check_bounds
 
 
 def get_default_k_callable():
@@ -225,6 +226,16 @@ class _BaseInterpolator(object):
         state.update(kwargs)
         return self.__class__(**state)
 
+    def deepcopy(self):
+        """A new table of the same class from :meth:`as_dict`."""
+        return self.__class__(**self.as_dict())
+
+    def copy(self):
+        """A shallow copy: a new object sharing this one's tensors."""
+        new = self.__class__.__new__(self.__class__)
+        new.__dict__.update(self.__dict__)
+        return new
+
 
 class PowerSpectrumInterpolator1D(_BaseInterpolator):
     """P(k), NaN outside [extrap_kmin, extrap_kmax]: a table ``pk``
@@ -288,13 +299,20 @@ class PowerSpectrumInterpolator1D(_BaseInterpolator):
     def kmax(self):
         return self.k[-1]
 
-    def __call__(self, k):
-        """P(k): batch + k.shape."""
+    def __call__(self, k, bounds_error=False, **kwargs):
+        """P(k): batch + k.shape. A table with ``bounds_error`` raises
+        ValueError for a k outside [extrap_kmin, extrap_kmax] (a check on the
+        host, so it waits for the device); ``kwargs`` go to a callable."""
         k = torch.as_tensor(k, dtype=torch.float64, device=self.device)
         shape = k.shape
         k = k.reshape(-1)
         mask = (k >= self.extrap_kmin) & (k <= self.extrap_kmax)
-        tmp = self._interp(k) if self.is_from_callable else self._interp(k).movedim(0, -1)
+        if self.is_from_callable:
+            tmp = self._interp(k, **kwargs)
+        else:
+            if bounds_error:
+                check_bounds(mask)
+            tmp = self._interp(k).movedim(0, -1)
         tmp = torch.where(mask, tmp, torch.nan)
         tmp = tmp * batch_scalar(self._rsigma8sq, 1)
         return tmp.reshape(tmp.shape[:-1] + shape)
@@ -415,9 +433,10 @@ class PowerSpectrumInterpolator2D(_BaseInterpolator):
     def zmax(self):
         return self.z[-1]
 
-    def __call__(self, k, z, grid=True, ignore_growth=False):
+    def __call__(self, k, z, grid=True, ignore_growth=False, bounds_error=False):
         """P(k, z) of shape batch + k.shape + z.shape if ``grid``, else
-        batch + k.shape for paired (k, z)."""
+        batch + k.shape for paired (k, z). ``bounds_error`` is accepted and
+        not checked, as in the JAX package: the range is masked to NaN."""
         k = torch.as_tensor(k, dtype=torch.float64, device=self.device)
         z = torch.as_tensor(z, dtype=torch.float64, device=self.device)
         shape = (k.shape + z.shape) if grid else k.shape
@@ -573,15 +592,17 @@ class CorrelationFunctionInterpolator1D(_BaseInterpolator):
     extrap_smin = smin
     extrap_smax = smax
 
-    def __call__(self, s):
-        """xi(s): batch + s.shape."""
+    def __call__(self, s, bounds_error=False, **kwargs):
+        """xi(s): batch + s.shape. A table with ``bounds_error`` raises
+        ValueError for an s outside [smin, smax] (a check on the host);
+        ``kwargs`` go to a callable."""
         s = torch.as_tensor(s, dtype=torch.float64, device=self.device)
         shape = s.shape
         s = s.reshape(-1)
         if self.is_from_callable:
-            tmp = torch.where((s >= self.smin) & (s <= self.smax), self._interp(s), torch.nan)
+            tmp = torch.where((s >= self.smin) & (s <= self.smax), self._interp(s, **kwargs), torch.nan)
         else:
-            tmp = self._interp(s).movedim(0, -1)
+            tmp = self._interp(s, bounds_error=bounds_error).movedim(0, -1)
         tmp = tmp * batch_scalar(self._rsigma8sq, 1)
         return tmp.reshape(tmp.shape[:-1] + shape)
 
@@ -682,9 +703,10 @@ class CorrelationFunctionInterpolator2D(_BaseInterpolator):
     def zmax(self):
         return self.z[-1]
 
-    def __call__(self, s, z, grid=True, ignore_growth=False):
+    def __call__(self, s, z, grid=True, ignore_growth=False, bounds_error=False):
         """xi(s, z) of shape batch + s.shape + z.shape if ``grid``, else
-        batch + s.shape for paired (s, z)."""
+        batch + s.shape for paired (s, z). ``bounds_error`` as
+        :meth:`PowerSpectrumInterpolator2D.__call__`."""
         s = torch.as_tensor(s, dtype=torch.float64, device=self.device)
         z = torch.as_tensor(z, dtype=torch.float64, device=self.device)
         shape = (s.shape + z.shape) if grid else s.shape

@@ -22,9 +22,13 @@ class BBKSEngine(BaseEngine):
 
     def __init__(self, cosmo, **extra_params):
         super().__init__(cosmo, **extra_params)
-        # Sugiyama 1995 shape parameter (1812.05995 eq. 16): the batch shape
-        self.gamma = self['omega_m'] * torch.exp(-self['Omega_b'] * (1.0 + torch.sqrt(2.0 * self['h']) / self['Omega_m']))
+        self.compute()
         self._A_s = self._get_A_s_fid()
+
+    def compute(self):
+        """The Sugiyama 1995 shape parameter ``gamma`` (1812.05995 eq. 16):
+        the batch shape."""
+        self.gamma = self['omega_m'] * torch.exp(-self['Omega_b'] * (1.0 + torch.sqrt(2.0 * self['h']) / self['Omega_m']))
 
 
 class Transfer(BaseSection):

@@ -144,6 +144,10 @@ class Primordial(BaseSection):
     def A_s(self):
         return self._A_s * self._rsigma8 ** 2
 
+    @property
+    def ln_1e10_A_s(self):
+        return torch.log(1e10 * self.A_s)
+
     @flatarray()
     def pk_k(self, k, mode='scalar'):
         r"""Primordial curvature spectrum :math:`\mathcal{P}_\mathcal{R}(k)`

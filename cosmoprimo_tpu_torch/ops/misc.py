@@ -1,9 +1,17 @@
-"""Shape policy and NaN-poisoning validation (cosmoprimo_tpu/ops/misc.py)."""
+"""Shape policy, host callbacks and NaN-poisoning validation
+(cosmoprimo_tpu/ops/misc.py)."""
 
 import functools
 
 import numpy as np
 import torch
+
+
+def _torch_dtype(dtype):
+    """A torch dtype for a torch dtype, or a numpy dtype or its name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
 
 
 def bcast_dtype(*args):
@@ -23,39 +31,47 @@ def bcast_dtype(*args):
             if dtype.is_floating_point:
                 dtypes.append(dtype)
         elif np.issubdtype(dtype, np.floating):
-            dtypes.append(torch.from_numpy(np.zeros(0, dtype=dtype)).dtype)
+            dtypes.append(_torch_dtype(dtype))
     if not dtypes or torch.float64 in dtypes:
         return torch.float64
     return dtypes[0]
 
 
-def flatarray(iargs=(0,)):
+def flatarray(iargs=(0,), dtype=None):
     """Decorator for methods taking array arguments at positions ``iargs``
     (after ``self``): each is made a float64 tensor on ``self.device`` and
     raveled to 1D for the computation, and the last axis of the output is
     reshaped back to the shape of the first, so scalar in gives the batch
     shape out. Leading output axes (the batch) are kept. The output is cast
-    to :func:`bcast_dtype` of the arguments, float32 in giving float32 out;
-    a float64 output is returned as it is."""
+    to ``dtype`` (a torch or numpy dtype) if given, else to
+    :func:`bcast_dtype` of the arguments, float32 in giving float32 out; a
+    float64 output is returned as it is."""
     def decorator(func):
 
         @functools.wraps(func)
         def wrapper(self, *args, **kwargs):
             args = list(args)
             shapes = []
-            dtype = bcast_dtype(*[args[i] for i in iargs])
+            out_dtype = _torch_dtype(dtype) if dtype is not None else bcast_dtype(*[args[i] for i in iargs])
             for i in iargs:
                 array = torch.as_tensor(args[i], dtype=torch.float64, device=self.device)
                 shapes.append(array.shape)
                 args[i] = array.reshape(-1)
             toret = func(self, *args, **kwargs)
-            if dtype != torch.float64:
-                toret = toret.to(dtype)
+            if dtype is not None or out_dtype != torch.float64:
+                toret = toret.to(out_dtype)
             return toret.reshape(toret.shape[:-1] + shapes[0])
 
         return wrapper
 
     return decorator
+
+
+def exception(func, *args):
+    """Call ``func(*args)`` on the host, for its side effects (a warning, or
+    raising), with tensor arguments copied there as numpy arrays; this
+    waits for the device. Returns None."""
+    func(*(arg.detach().cpu().numpy() if isinstance(arg, torch.Tensor) else arg for arg in args))
 
 
 def exception_or_nan(value, cond, error):

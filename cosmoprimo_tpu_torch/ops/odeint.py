@@ -1,9 +1,41 @@
-"""Cumulative quadrature and the linear 2nd-order solvers on a fixed grid
-(cosmoprimo_tpu/ops/odeint.py::cumquad_rk4, linear_ode2_magnus,
-linear_ode2_rk4_prefix)."""
+"""Fixed-grid Runge-Kutta integration, cumulative quadrature and the linear
+2nd-order solvers on a fixed grid (cosmoprimo_tpu/ops/odeint.py::odeint,
+cumquad_rk4, linear_ode2_magnus, linear_ode2_rk4_prefix)."""
 
 import numpy as np
 import torch
+
+
+def odeint(fun, y0, t, args=(), method='rk4'):
+    """Integrate dy/dt = fun(y, t, *args) on the fixed 1D grid ``t``
+    (increasing or decreasing) with 'rk1', 'rk2' or 'rk4', returning y at
+    every grid point, y(t[0]) = y0: shape t.shape + y0.shape. ``y0`` is a
+    scalar or a tensor (any leading batch axes are carried through ``fun``);
+    ``fun`` gets ``t`` as a 0-d tensor. One step per interval, in order."""
+    if method not in ('rk1', 'rk2', 'rk4'):
+        raise ValueError(f'unknown method {method}')
+    t = torch.as_tensor(t, dtype=torch.float64)
+    y = torch.as_tensor(y0, dtype=torch.float64, device=t.device)
+
+    def func(y, tt):
+        return fun(y, tt, *args)
+
+    def step(y, t_last, h):
+        k1 = func(y, t_last)
+        if method == 'rk1':
+            return y + h * k1
+        k2 = func(y + h * k1 / 2, t_last + h / 2)
+        if method == 'rk2':
+            return y + h * k2
+        k3 = func(y + h * k2 / 2, t_last + h / 2)
+        k4 = func(y + h * k3, t_last + h)
+        return y + h / 6.0 * (k1 + 2 * k2 + 2 * k3 + k4)
+
+    ys = [y]
+    for i in range(1, t.shape[0]):
+        y = step(y, t[i - 1], t[i] - t[i - 1])
+        ys.append(y)
+    return torch.stack(ys)
 
 
 def cumquad_rk4(fun, y0, t, args=()):

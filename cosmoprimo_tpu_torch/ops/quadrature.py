@@ -1,5 +1,5 @@
-"""Composite Simpson, Romberg, Gauss-Laguerre and Gauss-Legendre nodes and
-trapezoid weights (cosmoprimo_tpu/ops/quadrature.py)."""
+"""Composite Simpson, Romberg, Gauss-Legendre sums, Gauss-Laguerre and
+Gauss-Legendre nodes and trapezoid weights (cosmoprimo_tpu/ops/quadrature.py)."""
 
 import functools
 
@@ -63,21 +63,25 @@ def trapezoid_weights(x):
     return torch.cat([dx[:1] / 2, (dx[:-1] + dx[1:]) / 2, dx[-1:] / 2])
 
 
-def romberg(function, a, b, epsabs=1e-8, epsrel=1e-8, divmax=10, device=None):
-    """Romberg integration of ``function`` over [a, b] with ``divmax``
-    refinements. ``a`` is a Python float. With ``b`` a Python float,
-    ``function(x)`` takes a 1D tensor of abscissae on ``device`` and returns
-    (..., x.size), the batch leading; with ``b`` a tensor of the batch shape
-    (an upper limit per row), it takes the abscissae of each row, batch +
-    (m,), and returns the same shape. The result has the batch shape. Where
-    the last two diagonal entries disagree by more than ``epsabs`` or
-    ``epsrel``, that row is NaN: nothing is checked on the host."""
+def romberg(function, a, b, args=(), epsabs=1e-8, epsrel=1e-8, divmax=10, return_error=False, device=None):
+    """Romberg integration of ``function(x, *args)`` over [a, b] with
+    ``divmax`` refinements. ``a`` is a Python float. With ``b`` a Python
+    float, ``function`` takes a 1D tensor of abscissae on ``device`` and
+    returns (..., x.size), the batch leading; with ``b`` a tensor of the
+    batch shape (an upper limit per row), it takes the abscissae of each
+    row, batch + (m,), and returns the same shape. The result has the batch
+    shape; with ``return_error``, (result, err), ``err`` the last two
+    diagonal entries' difference. Where that difference exceeds ``epsabs``
+    or ``epsrel``, the row is NaN: nothing is checked on the host."""
+    def func(x):
+        return function(x, *args)
+
     rows = isinstance(b, torch.Tensor)
     if rows:   # the batch leads, then one axis for the abscissae
         device, b = b.device, b[..., None]
-        ends = function(torch.cat([torch.full_like(b, a), b], dim=-1))
+        ends = func(torch.cat([torch.full_like(b, a), b], dim=-1))
     else:
-        ends = function(torch.tensor([a, b], dtype=torch.float64, device=device))
+        ends = func(torch.tensor([a, b], dtype=torch.float64, device=device))
     interval_size = b - a
     ordsum = 0.5 * (ends[..., 0] + ends[..., 1])
     if rows:
@@ -88,7 +92,7 @@ def romberg(function, a, b, epsabs=1e-8, epsrel=1e-8, divmax=10, device=None):
         n *= 2
         h = interval_size / (n // 2)
         points = a + (torch.arange(n // 2, dtype=torch.float64, device=device) + 0.5) * h
-        ordsum = ordsum + torch.sum(function(points), dim=-1, keepdim=rows)
+        ordsum = ordsum + torch.sum(func(points), dim=-1, keepdim=rows)
         row = [interval_size * ordsum / n]
         for k in range(1, i + 1):
             pow4 = 4.0 ** k
@@ -97,7 +101,36 @@ def romberg(function, a, b, epsabs=1e-8, epsrel=1e-8, divmax=10, device=None):
         last_row = row
     result = last_row[divmax]
     result = torch.where((err < epsabs) & (err < torch.abs(result) * epsrel), result, torch.nan)
-    return result[..., 0] if rows else result
+    if rows:
+        result, err = result[..., 0], err[..., 0]
+    return (result, err) if return_error else result
+
+
+def gauss_legendre(fun, a, b, n=128, device=None):
+    """Gauss-Legendre integral of ``fun`` over [a, b] with ``n`` nodes.
+    ``a`` and ``b`` are floats, or tensors of one batch shape: ``fun`` then
+    takes the nodes (n,) or (n,) + that shape, and may return trailing axes,
+    which are kept; the sum runs over axis 0. The nodes lie on the bounds'
+    device, else on ``device``, else on the CPU; the sum runs where ``fun``
+    returns."""
+    xi, wi = leggauss(n)
+    tensors = [v for v in (a, b) if isinstance(v, torch.Tensor)]
+    if tensors:
+        device = tensors[0].device
+    half = (b - a) / 2.0
+    mid = (b + a) / 2.0
+    batch = torch.broadcast_shapes(*(v.shape for v in tensors)) if tensors else ()
+    nodes = (n,) + (1,) * len(batch)
+    xi = torch.from_numpy(xi).to(device).reshape(nodes)
+    y = fun(half * xi + mid)
+    w = torch.from_numpy(wi).to(y.device).reshape(nodes + (1,) * (y.dim() - len(nodes)))
+    total = torch.sum(y * w, dim=0)
+    if tensors:
+        half = half.to(total.device).reshape(half.shape + (1,) * (total.dim() - half.dim()))
+    return half * total
+
+
+fixed_quad_legendre = gauss_legendre
 
 
 @functools.lru_cache(maxsize=32)

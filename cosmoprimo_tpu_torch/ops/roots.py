@@ -29,12 +29,13 @@ def for_cond_loop(lower, upper, cond_fun, body_fun, init_val):
     return val
 
 
-def bracket(f, init, maxiter=15):
+def bracket(f, init, maxiter=15, maxtries=None):
     """A sign change of ``f`` per row, stepping from ``init`` = (x1, dx) or
     (x1, dx, f1): x1 moves by -1.5 dx while f keeps its sign. ``f`` maps a
     tensor of the batch shape to one of the same shape; x1 and dx are floats
     or such tensors. Returns (lo, hi), the last two points of each row, lo
-    <= hi.
+    <= hi. ``maxtries`` (the reference's retry count on an exception) is
+    accepted and ignored, as in the JAX package: a batch is not retried.
 
     Every row takes ``maxiter`` steps, a row that has found its sign change
     (or started on a root) frozen by ``torch.where``, as the vmapped JAX

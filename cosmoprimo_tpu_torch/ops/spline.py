@@ -85,6 +85,14 @@ def cubic_eval(x, f, M, t, nu=0):
     raise ValueError('nu must be 0, 1 or 2')
 
 
+def check_bounds(mask):
+    """Raise ValueError unless every entry of the boolean tensor ``mask``
+    (the queries inside the interpolation range) holds. Reads it on the
+    host."""
+    if not bool(mask.all()):
+        raise ValueError('input outside of interpolation range')
+
+
 class Interpolator1D(object):
     """Interpolator along axis 0 of ``fun`` (n, ...), natural cubic for
     ``k`` = 3 and linear otherwise (as the JAX package), with optional log10
@@ -102,6 +110,7 @@ class Interpolator1D(object):
             ix = torch.argsort(x)
             x, fun = x[ix], fun[ix]
         self.xmin, self.xmax = x[0], x[-1]
+        self._x, self._fun = x, fun
         if self.interp_x == 'log':
             x = torch.log10(x)
         if self.interp_fun == 'log':
@@ -112,11 +121,27 @@ class Interpolator1D(object):
         self._kf = fun
         self._kM = natural_cubic_coeffs(x, fun) if self.k == 3 else None
 
-    def __call__(self, x, dx=0):
+    @property
+    def x(self):
+        """The sorted knots, before any log transform."""
+        return self._x
+
+    @property
+    def fun(self):
+        """The values at :attr:`x`, before any log transform."""
+        return self._fun
+
+    def __call__(self, x, dx=0, bounds_error=False):
+        """The interpolant (or its ``dx``-th derivative) at ``x``: x.shape +
+        the trailing shape of ``fun``. With ``bounds_error``, an ``x`` outside
+        the knots raises ValueError; that check reads the mask on the host,
+        so it waits for the device."""
         x = torch.as_tensor(x, dtype=torch.float64, device=self._kx.device)
         toret_shape = x.shape + self.shape
         x = x.reshape(-1)
         mask = (x >= self.xmin) & (x <= self.xmax)
+        if bounds_error:
+            check_bounds(mask)
         tx = torch.log10(x) if self.interp_x == 'log' else x
         if self.k == 3:
             tmp = cubic_eval(self._kx, self._kf, self._kM, tx, nu=dx)
@@ -245,7 +270,10 @@ class Interpolator2D(object):
         gM = cubic_eval(self._ty, self._Mx.movedim(1, 0), self._Mxy.movedim(1, 0), ty)   # (nqy, nx, ...)
         return cubic_eval(self._tx, gF.movedim(0, 1), gM.movedim(0, 1), tx)              # (nqx, nqy, ...)
 
-    def __call__(self, x, y, grid=True):
+    def __call__(self, x, y, grid=True, bounds_error=False):
+        """The interpolant on the grid x.shape + y.shape (``grid``) or at the
+        pairs (x, y), then the trailing shape of ``fun``. ``bounds_error`` as
+        :meth:`Interpolator1D.__call__`."""
         x = torch.as_tensor(x, dtype=torch.float64, device=self._tx.device)
         y = torch.as_tensor(y, dtype=torch.float64, device=self._tx.device)
         toret_shape = (x.shape + y.shape) if grid else x.shape
@@ -253,6 +281,8 @@ class Interpolator2D(object):
         mask_x = (x >= self.xmin) & (x <= self.xmax)
         mask_y = (y >= self.ymin) & (y <= self.ymax)
         mask = (mask_x[:, None] & mask_y) if grid else (mask_x & mask_y)
+        if bounds_error:
+            check_bounds(mask)
         tx = torch.log10(x) if self.interp_x == 'log' else x
         ty = torch.log10(y) if self.interp_y == 'log' else y
         tmp = self._eval_grid(tx, ty) if grid else self._eval_pairs(tx, ty)

@@ -128,11 +128,13 @@ class LeastSquareSolver(object):
     constraint gradient C is (nbasis, nconstraints), or one per row
     (..., nbasis, nconstraints). With a per-row precision or constraint the
     system is a batch of small (nbasis + nconstraints)^2 matrices, inverted
-    together. Tensors go to the device of the first tensor argument, else
-    to ``device``, else the CPU.
+    together. ``compute_inverse`` is accepted for the reference signature
+    and ignored: the system is always inverted, as in the reference. Tensors
+    go to the device of the first tensor argument, else to ``device``, else
+    the CPU.
     """
 
-    def __init__(self, gradient, precision=1.0, constraint_gradient=None, device=None):
+    def __init__(self, gradient, precision=1.0, constraint_gradient=None, compute_inverse=True, device=None):
         for value in (gradient, precision, constraint_gradient):
             if isinstance(value, torch.Tensor):
                 device = value.device
@@ -161,7 +163,7 @@ class LeastSquareSolver(object):
                                 torch.cat([C.mT.expand(batch + (ncon, nbasis)), zero], dim=-1)], dim=-2)
         self._system = fisher
         self._inverse = torch.linalg.inv(fisher)
-        self._x = None
+        self._x = self._d = None
 
     def __call__(self, delta, constraint=None):
         """Coefficients (..., nbasis) for the data ``delta`` (..., ndata) and
@@ -184,6 +186,12 @@ class LeastSquareSolver(object):
         sol = self._apply(self._inverse, rhs)
         sol = sol + self._apply(self._inverse, rhs - self._apply(self._system, sol))
         self._x = sol[..., :nbasis]
+        self._d = delta
+        return self._x
+
+    @property
+    def coefficients(self):
+        """The coefficients (..., nbasis) of the last solve."""
         return self._x
 
     @staticmethod
@@ -194,6 +202,11 @@ class LeastSquareSolver(object):
     def model(self):
         """Best-fit model G^T x of the last solve: (..., ndata)."""
         return self._x @ self.gradient
+
+    def chi2(self):
+        """(d - G^T x)^T P (d - G^T x) of the last solve: (...)."""
+        resid = self._d - self.model()
+        return torch.sum(resid * self.precision * resid, dim=-1)
 
 
 def _solve_longdouble(system, rhs):
@@ -228,3 +241,33 @@ def fit_operator(gradient, precision, constraint_gradient):
     rhs[:nbasis, :ndata], rhs[nbasis:, ndata:] = G * w, np.eye(ncon)
     model = G.T @ _solve_longdouble(system, rhs)[:nbasis]
     return model[:, :ndata].astype(np.float64), model[:, ndata:].astype(np.float64)
+
+
+def setup_logging(level='info'):
+    """Logging to standard output at ``level`` ('debug', 'info', ...), each
+    line prefixed with the process's rank when torch.distributed runs more
+    than one process."""
+    import logging
+    import sys
+    rank = None
+    if torch.distributed.is_available() and torch.distributed.is_initialized() \
+            and torch.distributed.get_world_size() > 1:
+        rank = torch.distributed.get_rank()
+    fmt = '[%(asctime)s] %(levelname)s %(name)s: %(message)s'
+    if rank is not None:
+        fmt = f'[rank {rank}] ' + fmt
+    logging.basicConfig(level=getattr(logging, level.upper()), format=fmt, datefmt='%m-%d %H:%M', stream=sys.stdout,
+                        force=True)
+
+
+def savefig(filename, fig=None, bbox_inches='tight', pad_inches=0.1, dpi=200, **kwargs):
+    """Save and close a matplotlib figure (the current one by default),
+    making its directory; matplotlib is imported here, when it is needed.
+    Returns the figure."""
+    from matplotlib import pyplot as plt
+    mkdir(os.path.dirname(str(filename)))
+    if fig is None:
+        fig = plt.gcf()
+    fig.savefig(str(filename), bbox_inches=bbox_inches, pad_inches=pad_inches, dpi=dpi, **kwargs)
+    plt.close(fig)
+    return fig

@@ -266,5 +266,5 @@ def test_core_checks():
         fftlog_kernel.fftlog_core(x[:3], *random_core_args(rng, 3, 100, 256, 2)[1:], 0, 0)  # rows % nparallel
     with pytest.raises(TypeError):
         fftlog_kernel.fftlog_core(x.float(), u, pre, post, 0, 0)
-    with pytest.raises(ValueError):
-        fftlog.FFTlog(np.geomspace(1e-3, 1e2, 64), fftlog.BesselJKernel(0), engine='pallas')
+    with pytest.raises(ValueError):   # 'pallas' is the reference's name of 'kernel'; 'cufft' is none
+        fftlog.FFTlog(np.geomspace(1e-3, 1e2, 64), fftlog.BesselJKernel(0), engine='cufft')

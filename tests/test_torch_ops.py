@@ -10,6 +10,8 @@ prefix products associate in another order (measured 2e-15), sici
 interp and Interpolator2D.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -22,7 +24,9 @@ from cosmoprimo_tpu.ops.odeint import linear_ode2_magnus as jmagnus  # noqa: E40
 from cosmoprimo_tpu.ops.special import sici as jsici  # noqa: E402
 from cosmoprimo_tpu.ops import quadrature as jquad  # noqa: E402
 from cosmoprimo_tpu.ops import spline as jspline  # noqa: E402
-from cosmoprimo_tpu_torch.ops import misc, odeint, quadrature, special, spline  # noqa: E402
+from cosmoprimo_tpu_torch.ops import misc, quadrature, special, spline  # noqa: E402
+# the module: the package re-exports its odeint function under the same name
+odeint = importlib.import_module('cosmoprimo_tpu_torch.ops.odeint')
 
 RTOL = 1e-12
 
