@@ -224,6 +224,8 @@ import time
 import numpy as np
 import torch
 
+from cosmoprimo_tpu_torch.tracing import counters
+
 B = 40000
 NK = 1024
 B_HALOFIT = 16384
@@ -547,10 +549,10 @@ def run_pipeline(label, fn, params, nk, fftlog_kernel, card, timed=True):
     n = len(params[0])
     params_dev = [torch.from_numpy(p).to(DEVICE) for p in params]
     torch.cuda.reset_peak_memory_stats()
-    fftlog_kernel.launches = 0
+    counters['fftlog.launches'] = 0
     xi, chi, sigma8 = fn(*params_dev)
     torch.cuda.synchronize()
-    launches = fftlog_kernel.launches
+    launches = counters['fftlog.launches']
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f'{label}: B={n}, nk={nk}, xi {tuple(xi.shape)}, chi {tuple(chi.shape)}, sigma8 {tuple(sigma8.shape)}, '
           f'kernel launches {launches}, peak memory {peak_gb:.2f} GB', flush=True)
@@ -588,10 +590,10 @@ def forward_mode_and_complex(fftlog_kernel, transform_case, k, PowerToCorrelatio
     for label, transform, rows, profile in cases:
         x, args = transform_case(transform, rows, profile=profile)
         tangent = x * lnk                                  # d x / d tilt: smooth
-        fftlog_kernel.launches = 0
+        counters['fftlog.launches'] = 0
         out, jvp = torch.func.jvp(lambda f: fftlog_kernel.fftlog_core(f, *args), (x,), (tangent,))
         torch.cuda.synchronize()
-        launches = fftlog_kernel.launches
+        launches = counters['fftlog.launches']
         check(launches == 2, f'jvp at {label} took {launches} launches, not one for the primal and one for the tangent')
         out_ref, jvp_ref = torch.func.jvp(lambda f: fftlog_kernel.fftlog_core_torch(f, *args), (x,), (tangent,))
         torch.cuda.synchronize()
@@ -604,10 +606,10 @@ def forward_mode_and_complex(fftlog_kernel, transform_case, k, PowerToCorrelatio
     x, _ = transform_case(PowerToCorrelation(k), 4000)
     x = x.reshape(1000, 4, NK)
     ells = [0, 1, 2, 3]
-    fftlog_kernel.launches = 0
+    counters['fftlog.launches'] = 0
     _, got = PowerToCorrelation(k, ell=ells, complex=True)(x)
     torch.cuda.synchronize()
-    launches = fftlog_kernel.launches
+    launches = counters['fftlog.launches']
     _, ref = PowerToCorrelation(k, ell=ells, complex=True, engine='torch')(x)
     err = rel_err(got, ref)
     max_abs_err = max(max_abs_err, (got - ref).abs().max().item())
@@ -629,10 +631,10 @@ def sigma8_input(fftlog_kernel, Cosmology, rng, card):
         fo = cosmo.get_fourier()
         return fo.sigma8_m, fo.pk_interpolator()(torch.from_numpy(kq).to(device), torch.from_numpy(zq).to(device))
 
-    fftlog_kernel.launches = 0
+    counters['fftlog.launches'] = 0
     sigma8_m, pk = run(DEVICE, slice(None))
     torch.cuda.synchronize()
-    launches = fftlog_kernel.launches
+    launches = counters['fftlog.launches']
     s8_err = np.abs(sigma8_m.cpu().numpy() / s8 - 1).max()
     _, pk_cpu = run('cpu', slice(N_COMPARE))
     pk_err = (pk[:N_COMPARE].cpu() / pk_cpu - 1).abs().max().item()
@@ -693,10 +695,10 @@ def bao_template(fftlog_kernel, rng, card):
         check(all(errs[name] <= bars[name] for name in errs), f'card and CPU disagree on {label}')
 
     torch.cuda.reset_peak_memory_stats()
-    fftlog_kernel.launches = 0
+    counters['fftlog.launches'] = 0
     out = run(DEVICE, slice(None))
     torch.cuda.synchronize()
-    launches = fftlog_kernel.launches
+    launches = counters['fftlog.launches']
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f'BAO template: B={B_BAO} x {DESI_Z.size} z, nk=1024, pknow {tuple(out["ehpoly"].shape)}, '
           f'xi {tuple(out["xi_smooth"].shape)}, kernel launches {launches}, peak memory {peak_gb:.2f} GB', flush=True)
@@ -741,7 +743,7 @@ def native_path(fftlog_kernel, rng, card):
     params_dev = [torch.from_numpy(p).to(DEVICE) for p in params]
     fn, _ = make_native_pk_pipeline_batched(nk=NK_NATIVE, kmax=1.0, z=(0.0, 1.0))
     torch.cuda.reset_peak_memory_stats()
-    fftlog_kernel.launches = 0
+    counters['fftlog.launches'] = 0
     t0 = time.perf_counter()
     pk, sigma8 = fn(*params_dev)
     torch.cuda.synchronize()
@@ -758,14 +760,14 @@ def native_path(fftlog_kernel, rng, card):
 
     # 11. the DESI fiducial at full knobs against the CLASS anchors; its
     # sigma8 runs TophatVariance through the FFTLog kernel
-    fftlog_kernel.launches = 0
+    counters['fftlog.launches'] = 0
     t0 = time.perf_counter()
     desi = DESI(engine='native', extra_params={'nk_pk': 128})
     fo, th = desi.get_fourier(), desi.get_thermodynamics()
     sigma8_m, sigma8_cb = fo.sigma8_m.item(), fo.sigma8_cb.item()
     torch.cuda.synchronize()
     build = time.perf_counter() - t0
-    launches = fftlog_kernel.launches
+    launches = counters['fftlog.launches']
     interp = fo.pk_interpolator()
     k_bao = torch.from_numpy(K_H[BAO_BAND]).to(DEVICE)
     pk0, pk1 = (interp(k_bao, torch.tensor([z], dtype=torch.float64, device=DEVICE))[:, 0].cpu().numpy()
@@ -910,10 +912,10 @@ def analytic_engines(fftlog_kernel, rng, card):
         return out
 
     torch.cuda.reset_peak_memory_stats()
-    fftlog_kernel.launches = 0
+    counters['fftlog.launches'] = 0
     out = run(DEVICE, slice(None))
     torch.cuda.synchronize()
-    n = fftlog_kernel.launches
+    n = counters['fftlog.launches']
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f'variants with one massive species: B={B_VARIANTS} x {DESI_Z.size} z, nk={NK_HMCODE}, mead (cold field '
           f'for sigma(R)) and halofit, P(k) and xi {tuple(out["pk mead"].shape)}, kernel '
@@ -1064,18 +1066,18 @@ def cmb_spectra(fftlog_kernel, rng, card):
         for call in range(2):
             stages.clear()
             torch.cuda.reset_peak_memory_stats()
-            fftlog_kernel.launches = 0
+            counters['fftlog.launches'] = 0
             t0 = time.perf_counter()
             out = spectra(DEVICE, slice(None), ELLMAX_CL)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-            launches = fftlog_kernel.launches if launches is None else launches
+            launches = counters['fftlog.launches'] if launches is None else launches
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             split = ', '.join(f'{label} {stages.get(label, 0.0):.3f} s' for _, _, label in wrapped)
             split += f', the rest (set-up, Bessel tables, splines) {walls[-1] - sum(stages.values()):.3f} s'
             print(f'CMB spectra, call {call + 1}: B={B_CL}, ellmax_cl={ELLMAX_CL} (lmax {ELLMAX_CL + 400}), r={R_CL} '
                   f'(tensors to l = 600): wall {walls[-1]:.3f} s, peak memory {peak_gb:.2f} GB; stages: {split}; '
-                  f'FFTLog kernel launches {fftlog_kernel.launches} on {card}', flush=True)
+                  f'FFTLog kernel launches {counters["fftlog.launches"]} on {card}', flush=True)
     finally:
         _patched(old)
     for kind, table in out.items():
@@ -1243,10 +1245,10 @@ def emulator_serving(fftlog_kernel, rng, card):
             return out
 
         torch.cuda.reset_peak_memory_stats()
-        fftlog_kernel.launches = 0
+        counters['fftlog.launches'] = 0
         out = serve(params, DEVICE)
         torch.cuda.synchronize()
-        launches = fftlog_kernel.launches
+        launches = counters['fftlog.launches']
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         print(f'emulated (native-base layout, {len(state["engines"])} nets): B={B_EMU}, {len(out)} outputs, '
               f'kernel launches {launches}, peak memory {peak_gb:.2f} GB; state built and written in '
@@ -1536,10 +1538,10 @@ def training(fftlog_kernel, rng, card):
             fo = cosmo.get_fourier()
             return {'pk': fo.pk_interpolator()(k, torch.from_numpy(DESI_Z).to(device)), 'sigma8': fo.sigma8_m[..., None]}
 
-        fftlog_kernel.launches = 0
+        counters['fftlog.launches'] = 0
         out = serve(params, DEVICE)
         torch.cuda.synchronize()
-        launches = fftlog_kernel.launches
+        launches = counters['fftlog.launches']
         check(launches > 0, 'the trained fourier emulator did not launch the FFTLog kernel')
         check(all(bool(torch.isfinite(value).all()) for value in out.values()),
               'the trained fourier emulator does not serve finite values')
@@ -1627,7 +1629,7 @@ def parallel_worker(port, nproc, rank, outdir):
             check(comm.recv(source=1, tag=3) == ('x' if rank == 0 else None), 'send/recv')
         comm.barrier()
         t0 = time.perf_counter()
-        fftlog_kernel.launches = 0
+        counters['fftlog.launches'] = 0
         if nproc == 2:
             mesh = make_mesh()
             rng = np.random.default_rng(24)
@@ -1648,7 +1650,7 @@ def parallel_worker(port, nproc, rank, outdir):
         else:
             fits = {(2, 2): sharded_fit(make_mesh(shape=(2, 2)), device)}
         torch.cuda.synchronize()
-        report['launches'] = fftlog_kernel.launches
+        report['launches'] = counters['fftlog.launches']
         report['walls']['main path'] = time.perf_counter() - t0
         for shape, (arrays, epochs) in fits.items():
             report[f'fit {shape} epochs'] = epochs
@@ -2067,11 +2069,11 @@ def wrapper_engines(fftlog_kernel, card):
     try:
         for name, kwargs in cases:
             camb = name not in ('class', 'axiclass', 'mochiclass', 'negnuclass', 'dsclass')
-            fftlog_kernel.launches = 0
+            counters['fftlog.launches'] = 0
             out = section_outputs(Cosmology(engine=name, device=DEVICE, **base, **kwargs), camb)
             torch.cuda.synchronize()
-            check(fftlog_kernel.launches > 0, f'engine {name!r} did not launch the FFTLog kernel')
-            launches += fftlog_kernel.launches
+            check(counters['fftlog.launches'] > 0, f'engine {name!r} did not launch the FFTLog kernel')
+            launches += counters['fftlog.launches']
             ref = section_outputs(Cosmology(engine=name, device='cpu', **base, **kwargs), camb)
             for key, value in ref.items():
                 got = out[key]
@@ -2218,7 +2220,7 @@ def api_surface(fftlog_kernel, rng, card):
         post = arrays['padded_postfactor'][:, left:left + x.shape[-1]]
         errs[name] = (rel_err(got / post, ref / post), rel_err(got, ref))
 
-    fftlog_kernel.launches = 0
+    counters['fftlog.launches'] = 0
     s, xi = fft(pk)
     fft.inv()
     k_back, pk_back = fft(xi)
@@ -2227,7 +2229,7 @@ def api_surface(fftlog_kernel, rng, card):
     # on the s grid has the same u and the same pre x post, so it agrees to
     # rounding (8.2e-16 before the postfactor on the CPU)
     c2p_k, c2p_pk = CorrelationToPower(s.cpu().numpy())(xi)
-    launches = fftlog_kernel.launches
+    launches = counters['fftlog.launches']
     torch.cuda.synchronize()
     check(launches == 4, f'the forward and inverted transforms took {launches} launches, not 4')
     against_plain('inverted', fft, xi.contiguous())
@@ -2255,9 +2257,9 @@ def api_surface(fftlog_kernel, rng, card):
     plain = PowerToCorrelation(k, engine='torch')(pk[:N_COMPARE])[1]
     for name, want in (('pallas', 1), ('fftw', 1), ('numpy', 0)):
         fft.set_fft_engine(name)
-        fftlog_kernel.launches = 0
+        counters['fftlog.launches'] = 0
         got = fft(pk[:N_COMPARE])[1]
-        n = fftlog_kernel.launches
+        n = counters['fftlog.launches']
         launches += n
         err = rel_err(got, plain)
         print(f"api (b): set_fft_engine('{name}') -> '{fft.engine}', {n} kernel launches, against the 'torch' "
@@ -2266,9 +2268,9 @@ def api_surface(fftlog_kernel, rng, card):
         check(err <= KERNEL_BAR, f"set_fft_engine('{name}') disagrees with the 'torch' engine")
     # (c) the quickstart on the card against the CPU
     t1 = time.perf_counter()
-    fftlog_kernel.launches = 0
+    counters['fftlog.launches'] = 0
     on_card = quickstart.main(['--device', 'cuda'])
-    n = fftlog_kernel.launches
+    n = counters['fftlog.launches']
     launches += n
     wall_card = time.perf_counter() - t1
     t1 = time.perf_counter()
@@ -2438,9 +2440,9 @@ def main():
     timed = {}
     max_abs_err = 0.0
     for label, (x, args) in cases.items():
-        fftlog_kernel.launches = 0
+        counters['fftlog.launches'] = 0
         got = fftlog_kernel.fftlog_core(x, *args)
-        check(fftlog_kernel.launches == 1, f'one forward call at {label} is not one launch')
+        check(counters['fftlog.launches'] == 1, f'one forward call at {label} is not one launch')
         ref = fftlog_kernel.fftlog_core_torch(x, *args)
         grad_out = torch.from_numpy(rng.normal(size=tuple(x.shape))).to(dev)
         xk = x.clone().requires_grad_(True)

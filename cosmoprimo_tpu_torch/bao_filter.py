@@ -31,6 +31,7 @@ the caller's device explicitly.
 import numpy as np
 import torch
 
+from . import tracing
 from .cosmology import Cosmology
 from .interpolator import CorrelationFunctionInterpolator2D, PowerSpectrumInterpolator2D
 from .ops import cubic_eval_rows, interp, linspace_rows, natural_cubic_coeffs, natural_cubic_coeffs_rows, simpson
@@ -140,14 +141,18 @@ class BasePowerSpectrumBAOFilter(_BaseBAOFilter):
     name = 'base'
 
     def __init__(self, pk_interpolator, cosmo=None, cosmo_fid=None, **kwargs):
-        self._cosmo_fid = cosmo_fid
-        self._cosmo = cosmo
-        self.pk_interpolator = pk_interpolator
-        self.set_k(**kwargs)
-        self.set_pk(pk_interpolator, cosmo=cosmo)
-        self._prepare()
-        self._compute()
-        self.pk, self.pknow = self._unrows(self.pk), self._unrows(self.pknow)
+        with tracing.span('cosmoprimo.bao_filter'):
+            self._cosmo_fid = cosmo_fid
+            self._cosmo = cosmo
+            self.pk_interpolator = pk_interpolator
+            self.set_k(**kwargs)
+            with tracing.span('cosmoprimo.bao_filter.evaluate'):
+                self.set_pk(pk_interpolator, cosmo=cosmo)
+            with tracing.span('cosmoprimo.bao_filter.prepare'):
+                self._prepare()
+            with tracing.span('cosmoprimo.bao_filter.compute'):
+                self._compute()
+            self.pk, self.pknow = self._unrows(self.pk), self._unrows(self.pknow)
 
     def _prepare(self):
         """One-time host-side setup (data-dependent indices are frozen here)."""
@@ -171,9 +176,12 @@ class BasePowerSpectrumBAOFilter(_BaseBAOFilter):
                                  isinstance(pk_interpolator, PowerSpectrumInterpolator2D))
 
     def __call__(self, pk_interpolator, cosmo=None):
-        self.set_pk(pk_interpolator, cosmo=cosmo)
-        self._compute()
-        self.pk, self.pknow = self._unrows(self.pk), self._unrows(self.pknow)
+        with tracing.span('cosmoprimo.bao_filter'):
+            with tracing.span('cosmoprimo.bao_filter.evaluate'):
+                self.set_pk(pk_interpolator, cosmo=cosmo)
+            with tracing.span('cosmoprimo.bao_filter.compute'):
+                self._compute()
+            self.pk, self.pknow = self._unrows(self.pk), self._unrows(self.pknow)
         return self
 
     @property
@@ -401,6 +409,7 @@ def _find_peaks(y):
 def _fiducial_peaks(filt, k_fid):
     """The fiducial spectrum over EH no-wiggle at ``k_fid`` (host numpy),
     and its smooth correction: a constrained fit of k^-1 .. k^2."""
+    tracing.counters['bao_filter.fiducial_fits'] += 1
     cosmo_fid = filt.cosmo_fid
     k = _on(cosmo_fid.device, k_fid)
     pk_fid = cosmo_fid.get_fourier().pk_interpolator()(k, z=0.0).cpu().numpy()

@@ -22,7 +22,7 @@ import warnings
 import numpy as np
 import torch
 
-from . import constants, utils
+from . import constants, tracing, utils
 from .ops import (Interpolator1D, batch_scalar, cumquad_rk4, exception_or_nan, flatarray, gauss_laguerre_nodes,
                   linear_ode2_rk4_prefix, romberg)
 from .ops.roots import bisect, bracket, for_cond_loop
@@ -818,17 +818,18 @@ class Cosmology(ParamsAccessor):
     """
 
     def __init__(self, engine=None, extra_params=None, device=None, **params):
-        check_params(params)
-        self._derived = {}
-        self._engine = None
-        defaults = dict(DEFAULT_COSMOLOGICAL_PARAMETERS)
-        defaults.update(DEFAULT_CALCULATION_PARAMETERS)
-        self._input_params = merge_params(defaults, params)
-        self._params = compile_params(self._input_params, engine=get_engine(engine) if engine is not None else None,
-                                      device=device)
-        self._extra_params = {}
-        if engine is not None:
-            self.set_engine(engine, **(extra_params or {}))
+        with tracing.span('cosmoprimo.params'):
+            check_params(params)
+            self._derived = {}
+            self._engine = None
+            defaults = dict(DEFAULT_COSMOLOGICAL_PARAMETERS)
+            defaults.update(DEFAULT_CALCULATION_PARAMETERS)
+            self._input_params = merge_params(defaults, params)
+            self._params = compile_params(self._input_params,
+                                          engine=get_engine(engine) if engine is not None else None, device=device)
+            self._extra_params = {}
+            if engine is not None:
+                self.set_engine(engine, **(extra_params or {}))
 
     @property
     def engine(self):
@@ -1356,7 +1357,8 @@ class DefaultBackground(BaseBackground):
     def _table(self, name, build):
         """The interpolator ``name`` of the cache, made by ``build()`` once."""
         if name not in self._cache:
-            self._cache[name] = build()
+            with tracing.span('cosmoprimo.background'):
+                self._cache[name] = build()
         return self._cache[name]
 
     def _ncdm_interpolator(self, out):
@@ -1416,7 +1418,8 @@ class DefaultBackground(BaseBackground):
     @flatarray()
     def comoving_radial_distance(self, z):
         r"""Comoving radial distance, in Mpc/h (astro-ph/9905116 eq. 15)."""
-        return torch.movedim(self._distance_interpolator()(z), 0, -1)
+        with tracing.span('cosmoprimo.background'):
+            return torch.movedim(self._distance_interpolator()(z), 0, -1)
 
     # ---- at redshifts that differ by row: ``z`` is batch + (m,), and so is
     # the result, row b at its own z[b] (the functions above evaluate every
@@ -1443,29 +1446,30 @@ class DefaultBackground(BaseBackground):
         :func:`ops.linear_ode2_rk4_prefix`."""
         name_factor, name_rate = f'growth_factor_{mass}', f'growth_rate_{mass}'
         if name_factor not in self._cache:
-            if mass == 'm':
-                Omega_mass = self.Omega_m
-            elif mass == 'cb':
-                def Omega_mass(z):
-                    return self.Omega_cdm(z) + self.Omega_b(z)
-            else:
-                raise ValueError("mass must be one of ['m', 'cb']")
+            with tracing.span('cosmoprimo.background'):
+                if mass == 'm':
+                    Omega_mass = self.Omega_m
+                elif mass == 'cb':
+                    def Omega_mass(z):
+                        return self.Omega_cdm(z) + self.Omega_b(z)
+                else:
+                    raise ValueError("mass must be one of ['m', 'cb']")
 
-            def coeffs(eta):
-                z = torch.exp(-eta) - 1.0
-                w_fld = self.w0_fld[..., None] + z / (1.0 + z) * self.wa_fld[..., None]
-                addot = -0.5 * (1.0 - self.Omega_k(z) + self.Omega_r(z) + 3 * w_fld * self.Omega_de(z))
-                return 1.5 * Omega_mass(z), -1.0 - addot
+                def coeffs(eta):
+                    z = torch.exp(-eta) - 1.0
+                    w_fld = self.w0_fld[..., None] + z / (1.0 + z) * self.wa_fld[..., None]
+                    addot = -0.5 * (1.0 - self.Omega_k(z) + self.Omega_r(z) + 3 * w_fld * self.Omega_de(z))
+                    return 1.5 * Omega_mass(z), -1.0 - addot
 
-            eta_np = np.linspace(-6.0, 0.0, 201)
-            eta = torch.from_numpy(eta_np).to(self.device)
-            zc = torch.from_numpy((np.exp(-eta_np) - 1.0)[::-1].copy()).to(self.device)
-            D0 = float(np.exp(eta_np[0]))
-            sol = linear_ode2_rk4_prefix(coeffs, [D0, D0], eta)          # batch + (201, 2)
-            Dplus, Dplusp = sol[..., 0], sol[..., 1]
-            self._cache[name_factor] = Interpolator1D(zc, torch.movedim(Dplus.flip(-1), -1, 0), assume_sorted=True)
-            self._cache[name_rate] = Interpolator1D(zc, torch.movedim((Dplusp / Dplus).flip(-1), -1, 0),
-                                                    assume_sorted=True)
+                eta_np = np.linspace(-6.0, 0.0, 201)
+                eta = torch.from_numpy(eta_np).to(self.device)
+                zc = torch.from_numpy((np.exp(-eta_np) - 1.0)[::-1].copy()).to(self.device)
+                D0 = float(np.exp(eta_np[0]))
+                sol = linear_ode2_rk4_prefix(coeffs, [D0, D0], eta)          # batch + (201, 2)
+                Dplus, Dplusp = sol[..., 0], sol[..., 1]
+                self._cache[name_factor] = Interpolator1D(zc, torch.movedim(Dplus.flip(-1), -1, 0), assume_sorted=True)
+                self._cache[name_rate] = Interpolator1D(zc, torch.movedim((Dplusp / Dplus).flip(-1), -1, 0),
+                                                        assume_sorted=True)
         return self._cache[name_factor], self._cache[name_rate]
 
     @flatarray()
@@ -1473,11 +1477,12 @@ class DefaultBackground(BaseBackground):
         r"""Linear growth factor D(z) from the growth ODE in ln(a) with
         w(z)-aware friction, normalized to D(0) = 1 (or to the matter-era
         (1 + znorm)/(1 + z) convention if ``znorm`` is given)."""
-        factor, _ = self._growth_tables(mass=mass)
-        growthz = torch.movedim(factor(z), 0, -1)
-        if znorm is not None:   # a float, or one per row
-            return batch_scalar(1.0 + znorm) * growthz
-        return growthz / torch.movedim(factor(z.new_zeros(1)), 0, -1)
+        with tracing.span('cosmoprimo.background'):
+            factor, _ = self._growth_tables(mass=mass)
+            growthz = torch.movedim(factor(z), 0, -1)
+            if znorm is not None:   # a float, or one per row
+                return batch_scalar(1.0 + znorm) * growthz
+            return growthz / torch.movedim(factor(z.new_zeros(1)), 0, -1)
 
     @flatarray()
     def growth_rate(self, z, mass='m'):

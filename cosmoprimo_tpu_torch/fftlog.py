@@ -12,6 +12,7 @@ import numpy as np
 import torch
 from scipy.special import loggamma as _loggamma
 
+from . import tracing
 from .ops.fftlog_kernel import fftlog_core, fftlog_core_torch
 
 
@@ -288,38 +289,39 @@ class FFTlog(object):
         multipoles) runs the kernel twice, with its real and its imaginary
         part: the kernel writes real rows, and the output is a real row
         times the postfactor, so the two parts are exact."""
-        if np.iscomplexobj(self.padded_prefactor):
-            raise ValueError('a complex prefactor (the inverse of a complex=True transform) is not supported: '
-                             'the transform takes real rows')
-        fun = torch.as_tensor(fun, dtype=torch.float64)
-        arrays = self._arrays(fun.device)
-        engine = self.engine
-        if engine == 'auto':
-            engine = 'kernel' if fun.is_cuda else 'torch'
-        if engine == 'kernel' and 'padded_postfactor_parts' in arrays:
-            def core(x, u, prefactor, postfactor, in_left, out_left):
-                real, imag = (fftlog_core(x, u, prefactor, part, in_left, out_left)
-                              for part in arrays['padded_postfactor_parts'])
-                return torch.complex(real, imag)
-        else:
-            core = fftlog_core if engine == 'kernel' else fftlog_core_torch
-        if self.inparallel:
-            fun = fun.expand(torch.broadcast_shapes(fun.shape, (self.nparallel, self.size)))
-        shape = fun.shape[:-1]
-        rows = fun.reshape(-1, self.size).contiguous()
-        args = (arrays['padded_u'], arrays['padded_prefactor'], arrays['padded_postfactor'])
-        if not keep_padding and all(not isinstance(e, str) and e == 0 for e in _sides(extrap)):
-            # zero padding, prefactor and crop are fused into the core
-            out = core(rows, *args, self.padded_size_in_left, self.padded_size_out_left)
-        else:
-            padded = pad(rows, (self.padded_size_in_left, self.padded_size_in_right), extrap=extrap)
-            out = core(padded.contiguous(), *args, 0, 0)
-            if not keep_padding:
-                out = out[:, self.padded_size_out_left:self.padded_size_out_left + self.size]
-        y = arrays['padded_y' if keep_padding else 'y']
-        if not self.inparallel:
-            y = y[0]
-        return y, out.reshape(shape + out.shape[-1:])
+        with tracing.span('cosmoprimo.fftlog'):
+            if np.iscomplexobj(self.padded_prefactor):
+                raise ValueError('a complex prefactor (the inverse of a complex=True transform) is not supported: '
+                                 'the transform takes real rows')
+            fun = torch.as_tensor(fun, dtype=torch.float64)
+            arrays = self._arrays(fun.device)
+            engine = self.engine
+            if engine == 'auto':
+                engine = 'kernel' if fun.is_cuda else 'torch'
+            if engine == 'kernel' and 'padded_postfactor_parts' in arrays:
+                def core(x, u, prefactor, postfactor, in_left, out_left):
+                    real, imag = (fftlog_core(x, u, prefactor, part, in_left, out_left)
+                                  for part in arrays['padded_postfactor_parts'])
+                    return torch.complex(real, imag)
+            else:
+                core = fftlog_core if engine == 'kernel' else fftlog_core_torch
+            if self.inparallel:
+                fun = fun.expand(torch.broadcast_shapes(fun.shape, (self.nparallel, self.size)))
+            shape = fun.shape[:-1]
+            rows = fun.reshape(-1, self.size).contiguous()
+            args = (arrays['padded_u'], arrays['padded_prefactor'], arrays['padded_postfactor'])
+            if not keep_padding and all(not isinstance(e, str) and e == 0 for e in _sides(extrap)):
+                # zero padding, prefactor and crop are fused into the core
+                out = core(rows, *args, self.padded_size_in_left, self.padded_size_out_left)
+            else:
+                padded = pad(rows, (self.padded_size_in_left, self.padded_size_in_right), extrap=extrap)
+                out = core(padded.contiguous(), *args, 0, 0)
+                if not keep_padding:
+                    out = out[:, self.padded_size_out_left:self.padded_size_out_left + self.size]
+            y = arrays['padded_y' if keep_padding else 'y']
+            if not self.inparallel:
+                y = y[0]
+            return y, out.reshape(shape + out.shape[-1:])
 
     def inv(self):
         """Swap the direction of the transform in place: x and y, the padded

@@ -14,6 +14,7 @@ import functools
 import numpy as np
 import torch
 
+from . import tracing
 from .fftlog import CorrelationToPower, PowerToCorrelation, TophatVariance
 from .ops import Interpolator1D, Interpolator2D, batch_scalar, bcast_dtype, leggauss, romberg, simpson  # noqa: F401
 from .ops.spline import check_bounds
@@ -338,11 +339,12 @@ class PowerSpectrumInterpolator1D(_BaseInterpolator):
     def to_xi(self, nk=1024, fftlog_kwargs=None, **kwargs):
         """P(k) -> xi(s) by FFTLog over every row (on a CUDA tensor, the
         kernel): a :class:`CorrelationFunctionInterpolator1D`."""
-        k = _geomspace(self.extrap_kmin, self.extrap_kmax, nk)
-        s, xi = _apply(PowerToCorrelation, k, self(_on(self.device, k)), fftlog_kwargs)
-        default_params = dict(interp_s='log', interp_order_s=self.interp_order_k)
-        default_params.update(kwargs)
-        return CorrelationFunctionInterpolator1D(s, xi=xi, **default_params)
+        with tracing.span('cosmoprimo.to_xi'):
+            k = _geomspace(self.extrap_kmin, self.extrap_kmax, nk)
+            s, xi = _apply(PowerToCorrelation, k, self(_on(self.device, k)), fftlog_kwargs)
+            default_params = dict(interp_s='log', interp_order_s=self.interp_order_k)
+            default_params.update(kwargs)
+            return CorrelationFunctionInterpolator1D(s, xi=xi, **default_params)
 
 
 class PowerSpectrumInterpolator2D(_BaseInterpolator):
@@ -535,13 +537,14 @@ class PowerSpectrumInterpolator2D(_BaseInterpolator):
     def to_xi(self, nk=1024, fftlog_kwargs=None, **kwargs):
         """P(k, z) -> xi(s, z) by one FFTLog over every (batch, z) row (on a
         CUDA tensor, the kernel): a :class:`CorrelationFunctionInterpolator2D`."""
-        k = _geomspace(self.extrap_kmin, self.extrap_kmax, nk)
-        pk = self(_on(self.device, k), _on(self.device, self.z), ignore_growth=True)
-        s, xi = _apply(PowerToCorrelation, k, pk.transpose(-1, -2), fftlog_kwargs)
-        default_params = dict(interp_s='log', interp_order_s=self.interp_order_k,
-                              interp_order_z=self.interp_order_z, growth_factor_sq=self.growth_factor_sq)
-        default_params.update(kwargs)
-        return CorrelationFunctionInterpolator2D(s, z=self.z, xi=xi.transpose(-1, -2), **default_params)
+        with tracing.span('cosmoprimo.to_xi'):
+            k = _geomspace(self.extrap_kmin, self.extrap_kmax, nk)
+            pk = self(_on(self.device, k), _on(self.device, self.z), ignore_growth=True)
+            s, xi = _apply(PowerToCorrelation, k, pk.transpose(-1, -2), fftlog_kwargs)
+            default_params = dict(interp_s='log', interp_order_s=self.interp_order_k,
+                                  interp_order_z=self.interp_order_z, growth_factor_sq=self.growth_factor_sq)
+            default_params.update(kwargs)
+            return CorrelationFunctionInterpolator2D(s, z=self.z, xi=xi.transpose(-1, -2), **default_params)
 
 
 class CorrelationFunctionInterpolator1D(_BaseInterpolator):

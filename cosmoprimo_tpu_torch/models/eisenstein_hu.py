@@ -10,7 +10,7 @@ batch + k.shape (k 1D).
 import numpy as np
 import torch
 
-from .. import constants, utils
+from .. import constants, tracing, utils
 from ..cosmology import BaseEngine, BaseSection, CosmologyInputError, DefaultBackground, register_engine
 from ..interpolator import PowerSpectrumInterpolator1D, PowerSpectrumInterpolator2D
 from ..ops import batch_scalar, flatarray
@@ -103,10 +103,11 @@ class Background(DefaultBackground):
             Om, Ode = self.Omega_m(z), self.Omega_de(z)
             return 1.0 / (1 + z) * 5 * Om / 2.0 / (Om ** (4.0 / 7.0) - Ode + (1.0 + Om / 2.0) * (1 + Ode / 70.0))
 
-        growthz = growth(z)
-        if znorm is not None:   # a float, or one per row
-            return batch_scalar(1.0 + znorm) * growthz
-        return growthz / growth(torch.zeros_like(z))
+        with tracing.span('cosmoprimo.background'):
+            growthz = growth(z)
+            if znorm is not None:   # a float, or one per row
+                return batch_scalar(1.0 + znorm) * growthz
+            return growthz / growth(torch.zeros_like(z))
 
     @flatarray()
     def growth_rate(self, z):
@@ -273,9 +274,11 @@ class Fourier(BaseSection):
 
         def pk_callable(k):
             # curvature perturbation -> potential -> density contrast
-            potential_to_density = (3.0 * ba.Omega0_m[..., None] * 100 ** 2 / (2.0 * (constants.c / 1e3) ** 2 * k ** 2)) ** (-2)
-            curvature_to_potential = 9.0 / 25.0 * 2.0 * np.pi ** 2 / k ** 3 / ba.h[..., None] ** 3
-            return tr.transfer_k(k) ** 2 * potential_to_density * curvature_to_potential * pm.pk_k(k)
+            with tracing.span('cosmoprimo.linear_pk'):
+                potential_to_density = (3.0 * ba.Omega0_m[..., None] * 100 ** 2
+                                        / (2.0 * (constants.c / 1e3) ** 2 * k ** 2)) ** (-2)
+                curvature_to_potential = 9.0 / 25.0 * 2.0 * np.pi ** 2 / k ** 3 / ba.h[..., None] ** 3
+                return tr.transfer_k(k) ** 2 * potential_to_density * curvature_to_potential * pm.pk_k(k)
 
         return PowerSpectrumInterpolator2D.from_callable(pk_callable=pk_callable, growth_factor_sq=growth_factor_sq,
                                                          device=self.device, **kwargs)

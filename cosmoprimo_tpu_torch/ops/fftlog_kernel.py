@@ -33,9 +33,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 
 import numpy as np
 import torch
+
+from .. import tracing
 
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PACKAGE_DIR, 'csrc')
@@ -44,9 +47,6 @@ _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3', 
                '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 MIN_LOG2N, MAX_LOG2N = 6, 13
-
-#: Number of launches of the CUDA kernel (forward and backward) in this process.
-launches = 0
 
 
 def fftlog_core_torch(x, u, prefactor, postfactor, in_left, out_left):
@@ -82,7 +82,8 @@ def _sources():
 
 def build():
     """Compile ``csrc/`` into a shared library unless a build of the same
-    sources exists; returns (path, compiler output or None if cached)."""
+    sources exists; returns (path, compiler output or None if cached). A
+    run of nvcc counts in ``tracing.counters['fftlog_kernel.builds']``."""
     digest = hashlib.sha256(' '.join(_NVCC_FLAGS).encode())
     for path in _sources():
         with open(path, 'rb') as f:
@@ -95,6 +96,7 @@ def build():
     os.close(fd)
     cu_sources = [path for path in _sources() if path.endswith('.cu')]
     cmd = [find_nvcc()] + _NVCC_FLAGS + ['-o', tmp_path] + cu_sources
+    tracing.counters['fftlog_kernel.builds'] += 1
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp_path)
@@ -105,7 +107,11 @@ def build():
 
 @functools.lru_cache(maxsize=1)
 def _library():
+    """The kernel's library, built (or found built) and loaded at its first
+    use; those host seconds count in ``tracing.counters['fftlog_kernel.build_s']``."""
+    t0 = time.perf_counter()
     lib = ctypes.CDLL(build()[0])
+    tracing.counters['fftlog_kernel.build_s'] += time.perf_counter() - t0
     lib.fftlog_core_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.fftlog_core_launch.restype = ctypes.c_int
     lib.fftlog_core_error_string.argtypes = [ctypes.c_int]
@@ -122,7 +128,6 @@ def _twiddles(n, device):
 
 
 def _launch(x, u, prefactor, postfactor, in_left, out_left):
-    global launches
     nparallel, n = prefactor.shape
     rows, size = x.shape
     out = torch.empty((rows, size), dtype=torch.float64, device=x.device)
@@ -131,12 +136,16 @@ def _launch(x, u, prefactor, postfactor, in_left, out_left):
     lib = _library()
     u_ri = torch.view_as_real(u)
     tw = _twiddles(n, x.device)
-    err = lib.fftlog_core_launch(x.data_ptr(), out.data_ptr(), u_ri.data_ptr(), prefactor.data_ptr(),
-                                 postfactor.data_ptr(), tw.data_ptr(), rows, n.bit_length() - 1, size,
-                                 in_left, out_left, nparallel, torch.cuda.current_stream(x.device).cuda_stream)
+    with tracing.span('cosmoprimo.fftlog.kernel'):
+        err = lib.fftlog_core_launch(x.data_ptr(), out.data_ptr(), u_ri.data_ptr(), prefactor.data_ptr(),
+                                     postfactor.data_ptr(), tw.data_ptr(), rows, n.bit_length() - 1, size,
+                                     in_left, out_left, nparallel, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'fftlog_core kernel launch failed: {lib.fftlog_core_error_string(err).decode()}')
-    launches += 1
+    counters = tracing.counters
+    counters['fftlog.launches'] += 1
+    shape = (rows, size, n, nparallel)
+    counters['fftlog.shapes'][shape] = counters['fftlog.shapes'].get(shape, 0) + 1
     return out
 
 
@@ -170,6 +179,12 @@ def _check(x, u, prefactor, postfactor, in_left, out_left):
 
 
 def _core(x, u, prefactor, postfactor, in_left, out_left):
+    """The kernel on CUDA tensors, its plain version on CPU tensors; each
+    call counted in ``tracing.counters`` (``fftlog.calls``), each launch in
+    :func:`_launch`."""
+    calls = tracing.counters['fftlog.calls']
+    shape = (x.shape[0], x.shape[1], prefactor.shape[1], prefactor.shape[0])
+    calls[shape] = calls.get(shape, 0) + 1
     if x.is_cuda:
         return _launch(x, u, prefactor, postfactor, in_left, out_left)
     if x.device.type != 'cpu':

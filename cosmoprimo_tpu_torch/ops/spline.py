@@ -20,6 +20,8 @@ Also the batched linear :func:`interp`.
 import numpy as np
 import torch
 
+from .. import tracing
+
 
 def natural_cubic_coeffs(x, f):
     """Second derivatives M at the knots of the natural cubic spline through
@@ -30,15 +32,16 @@ def natural_cubic_coeffs(x, f):
     n = x.shape[0]
     if n == 2:
         return torch.zeros_like(f)
-    h = torch.diff(x)
-    df = torch.diff(f, dim=0) / h.reshape((n - 1,) + (1,) * (f.dim() - 1))
-    # interior rows: h[i-1]/6 M[i-1] + (h[i-1]+h[i])/3 M[i] + h[i]/6 M[i+1] = df[i] - df[i-1]
-    rhs = (df[1:] - df[:-1]).reshape(n - 2, -1)
-    off = h[1:-1] / 6.0
-    T = torch.diag((h[:-1] + h[1:]) / 3.0) + torch.diag(off, 1) + torch.diag(off, -1)
-    Mi = torch.linalg.solve_ex(T, rhs)[0].reshape((n - 2,) + f.shape[1:])
-    zero = f.new_zeros((1,) + f.shape[1:])
-    return torch.cat([zero, Mi, zero], dim=0)
+    with tracing.span('cosmoprimo.spline_build'):
+        h = torch.diff(x)
+        df = torch.diff(f, dim=0) / h.reshape((n - 1,) + (1,) * (f.dim() - 1))
+        # interior rows: h[i-1]/6 M[i-1] + (h[i-1]+h[i])/3 M[i] + h[i]/6 M[i+1] = df[i] - df[i-1]
+        rhs = (df[1:] - df[:-1]).reshape(n - 2, -1)
+        off = h[1:-1] / 6.0
+        T = torch.diag((h[:-1] + h[1:]) / 3.0) + torch.diag(off, 1) + torch.diag(off, -1)
+        Mi = torch.linalg.solve_ex(T, rhs)[0].reshape((n - 2,) + f.shape[1:])
+        zero = f.new_zeros((1,) + f.shape[1:])
+        return torch.cat([zero, Mi, zero], dim=0)
 
 
 def linear_eval(x, f, t, nu=0):
@@ -352,19 +355,20 @@ def natural_cubic_coeffs_rows(x, f):
     n = x.shape[-1]
     if n == 2:
         return torch.zeros_like(f + x)
-    h = torch.diff(x, dim=-1)
-    df = torch.diff(f, dim=-1) / h
-    rhs = df[..., 1:] - df[..., :-1]
-    d = (h[..., :-1] + h[..., 1:]) / 3.0
-    if n == 3:
-        Mi = rhs / d
-    else:
-        zero = torch.zeros_like(h[..., :1])
-        dl = torch.cat([zero, h[..., 1:-1] / 6.0], dim=-1)
-        du = torch.cat([h[..., 1:-1] / 6.0, zero], dim=-1)
-        Mi = tridiagonal_solve(dl, d, du, rhs)
-    zero = torch.zeros_like(Mi[..., :1])
-    return torch.cat([zero, Mi, zero], dim=-1)
+    with tracing.span('cosmoprimo.spline_build'):
+        h = torch.diff(x, dim=-1)
+        df = torch.diff(f, dim=-1) / h
+        rhs = df[..., 1:] - df[..., :-1]
+        d = (h[..., :-1] + h[..., 1:]) / 3.0
+        if n == 3:
+            Mi = rhs / d
+        else:
+            zero = torch.zeros_like(h[..., :1])
+            dl = torch.cat([zero, h[..., 1:-1] / 6.0], dim=-1)
+            du = torch.cat([h[..., 1:-1] / 6.0, zero], dim=-1)
+            Mi = tridiagonal_solve(dl, d, du, rhs)
+        zero = torch.zeros_like(Mi[..., :1])
+        return torch.cat([zero, Mi, zero], dim=-1)
 
 
 def cubic_eval_rows(x, f, M, t):

@@ -9,7 +9,7 @@ import functools
 import numpy as np
 import torch
 
-from . import constants
+from . import constants, tracing
 from .cosmology import Cosmology
 from .fftlog import PowerToCorrelation
 from .interpolator import kernel_tophat2
@@ -72,18 +72,19 @@ def make_pk_to_xi_pipeline_batched(nk=1024, kmin=1e-5, kmax=1e2, engine='eisenst
                      (k_np, z_np, np.log(k_np), w8_np, np.array([0.5, 1.0, 2.0]), np.zeros(1)))
 
     def fn(omega_cdm, omega_b, h, n_s, logA):
-        k, zz, lnk, w8, zq, z0 = grids(omega_cdm.device)
-        cosmo = Cosmology(omega_cdm=omega_cdm, omega_b=omega_b, h=h, n_s=n_s, logA=logA, engine=engine)
-        pk = cosmo.get_fourier().pk_interpolator()
-        pkz = pk(k, zz)                                     # (B, nk, nz)
-        # sigma8 is defined on the linear spectrum at z = 0
-        pk0 = pkz[..., iz0] if z0_in_grid else pk(k, z0)[..., 0]
-        sigma8 = torch.sqrt(simpson(pk0 * w8, x=lnk) / (2.0 * np.pi ** 2))
-        ba = cosmo.get_background()
-        pk_t = apply_non_linear(non_linear, cosmo, ba, k, pkz.transpose(-1, -2), zz, omega_b, h, n_s)   # (B, nz, nk)
-        chi = ba.comoving_radial_distance(zq)
-        s, xi = p2c(pk_t)                                   # one batched FFTLog
-        return xi, chi, sigma8
+        with tracing.span('cosmoprimo.pipeline.pk_to_xi'):
+            k, zz, lnk, w8, zq, z0 = grids(omega_cdm.device)
+            cosmo = Cosmology(omega_cdm=omega_cdm, omega_b=omega_b, h=h, n_s=n_s, logA=logA, engine=engine)
+            pk = cosmo.get_fourier().pk_interpolator()
+            pkz = pk(k, zz)                                     # (B, nk, nz)
+            # sigma8 is defined on the linear spectrum at z = 0
+            pk0 = pkz[..., iz0] if z0_in_grid else pk(k, z0)[..., 0]
+            sigma8 = torch.sqrt(simpson(pk0 * w8, x=lnk) / (2.0 * np.pi ** 2))
+            ba = cosmo.get_background()
+            pk_t = apply_non_linear(non_linear, cosmo, ba, k, pkz.transpose(-1, -2), zz, omega_b, h, n_s)  # (B, nz, nk)
+            chi = ba.comoving_radial_distance(zq)
+            s, xi = p2c(pk_t)                                   # one batched FFTLog
+            return xi, chi, sigma8
 
     return fn, k_np, np.asarray(p2c.y[0])
 

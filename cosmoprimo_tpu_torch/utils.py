@@ -1,13 +1,16 @@
 """General utilities (cosmoprimo_tpu/utils.py): ``addproperty``, the state
 files (``write_state``, ``read_state``), the constrained least-squares
-solver and the distance-to-redshift inversion."""
+solver, the distance-to-redshift inversion and the profiler's trace
+(``profile_trace``)."""
 
+import contextlib
 import json
 import os
 
 import numpy as np
 import torch
 
+from . import tracing
 from .ops import Interpolator1D, cubic_eval_rows, interp, natural_cubic_coeffs_rows
 
 
@@ -258,6 +261,25 @@ def setup_logging(level='info'):
         fmt = f'[rank {rank}] ' + fmt
     logging.basicConfig(level=getattr(logging, level.upper()), format=fmt, datefmt='%m-%d %H:%M', stream=sys.stdout,
                         force=True)
+
+
+@contextlib.contextmanager
+def profile_trace(dirname='cosmoprimo-trace'):
+    """Context manager profiling its block with ``torch.profiler`` (the CPU,
+    and CUDA where there is a card) with the program's spans on
+    (:mod:`tracing`). On exit it writes ``dirname/trace.json``, a
+    Chrome/Perfetto trace that holds the spans, and beside it
+    ``dirname/counters.json``, the program's counters
+    (``tracing.counters``, the counts by shape keyed by
+    'rows,size,padded,nparallel'). Yields ``dirname``."""
+    mkdir(dirname)
+    with tracing.profile() as prof:
+        yield dirname
+    prof.export_chrome_trace(os.path.join(dirname, 'trace.json'))
+    counters = {name: {','.join(map(str, shape)): n for shape, n in value.items()} if isinstance(value, dict)
+                else value for name, value in tracing.counters.items()}
+    with open(os.path.join(dirname, 'counters.json'), 'w') as f:
+        json.dump(counters, f, indent=1)
 
 
 def savefig(filename, fig=None, bbox_inches='tight', pad_inches=0.1, dpi=200, **kwargs):

@@ -78,7 +78,6 @@ EXCLUDED = {
     '*:tree_flatten': 'JAX pytree registration', '*:tree_unflatten': 'JAX pytree registration',
     '*:fft_pair': 'TPU-only real-pair FFT (ops/fft.py)', '*:rfft_pair': 'TPU-only real-pair FFT (ops/fft.py)',
     '*:irfft_pair': 'TPU-only real-pair FFT (ops/fft.py)',
-    'cosmoprimo_tpu.utils:profile_trace': "a jax.profiler context; the port's profiling is stage_profile.py",
     'cosmoprimo_tpu.parallel.distributed:JaxDistributedComm': 'replaced by TorchDistributedComm',
     'cosmoprimo_tpu.emulators.mlp:init_train_state': "a flax/optax train state; the port's MLP holds its own "
                                                      'parameters and fits with torch.optim',

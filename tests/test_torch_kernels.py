@@ -22,6 +22,8 @@ import torch
 
 from cosmoprimo_tpu_torch import CorrelationToPower, GaussianVariance, HankelTransform, PowerToCorrelation, TophatVariance
 from cosmoprimo_tpu_torch.ops import fftlog_kernel
+from cosmoprimo_tpu_torch import tracing
+from cosmoprimo_tpu_torch.tracing import counters
 
 BAR = 1e-12
 
@@ -56,17 +58,17 @@ def random_core_args(rng, rows, size, n, nparallel, device):
 def test_fftlog_core_against_plain(cuda_device, rows, size, n, nparallel, in_left, out_left):
     rng = np.random.default_rng(rows)
     x, u, pre, post = random_core_args(rng, rows, size, n, nparallel, cuda_device)
-    launches = fftlog_kernel.launches
+    launches = counters['fftlog.launches']
     got = fftlog_kernel.fftlog_core(x, u, pre, post, in_left, out_left)
     ref = fftlog_kernel.fftlog_core_torch(x, u, pre, post, in_left, out_left)
     torch.cuda.synchronize()
-    assert fftlog_kernel.launches == launches + 1
+    assert counters['fftlog.launches'] == launches + 1
     assert norm_err(got, ref) <= BAR
     grad_out = torch.from_numpy(rng.normal(size=(rows, size))).to(cuda_device)
     xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
     gk, = torch.autograd.grad(fftlog_kernel.fftlog_core(xk, u, pre, post, in_left, out_left), xk, grad_out)
     gp, = torch.autograd.grad(fftlog_kernel.fftlog_core_torch(xp, u, pre, post, in_left, out_left), xp, grad_out)
-    assert fftlog_kernel.launches == launches + 3  # one forward above, then forward and backward
+    assert counters['fftlog.launches'] == launches + 3  # one forward above, then forward and backward
     assert norm_err(gk, gp) <= BAR
 
 
@@ -111,9 +113,9 @@ def test_transform_on_cuda_against_cpu(cuda_device, transform):
     k = np.geomspace(1e-5, 1e2, 1024)
     fun = torch.from_numpy(1e4 * (k / 0.1) ** 0.96 / (1 + (k / 0.1) ** 3) * np.random.default_rng(8).uniform(0.5, 2.0, (4, 1)))
     tr = transform(k)
-    launches = fftlog_kernel.launches
+    launches = counters['fftlog.launches']
     y, got = tr(fun.to(cuda_device))
-    assert fftlog_kernel.launches == launches + 1
+    assert counters['fftlog.launches'] == launches + 1
     _, ref = tr(fun)
     assert norm_err(got.cpu(), ref) <= BAR
 
@@ -148,16 +150,41 @@ def test_forward_mode_on_cuda(cuda_device, ell, rows):
     plain = PowerToCorrelation(k, ell=ell, engine='torch')
     shape = (rows // 3, 3, 1024) if np.ndim(ell) else (rows, 1024)
     pk, tangent = (a.reshape(shape).to(cuda_device) for a in smooth_rows(k, rows, rows))
-    launches = fftlog_kernel.launches
+    launches = counters['fftlog.launches']
     out, jvp = torch.func.jvp(lambda f: transform(f)[1], (pk,), (tangent,))
-    assert fftlog_kernel.launches == launches + 2
+    assert counters['fftlog.launches'] == launches + 2
     out_ref, jvp_ref = torch.func.jvp(lambda f: plain(f)[1], (pk,), (tangent,))
     assert norm_err(out, out_ref) <= BAR and norm_err(jvp, jvp_ref) <= BAR
     tangents = torch.stack([tangent, 2.0 * tangent, pk])
-    launches = fftlog_kernel.launches
+    launches = counters['fftlog.launches']
     vmapped = torch.func.vmap(lambda t: torch.func.jvp(lambda f: transform(f)[1], (pk,), (t,))[1])(tangents)
-    assert fftlog_kernel.launches == launches + 2
+    assert counters['fftlog.launches'] == launches + 2
     assert norm_err(vmapped, torch.stack([jvp_ref, 2.0 * jvp_ref, out_ref])) <= BAR
+
+
+@pytest.mark.cuda
+def test_forward_mode_on_cuda_in_a_profiled_session(cuda_device):
+    """jvp and vmapped tangents through the kernel inside the program's
+    profiled session, where the kernel's own span is on: the answers of the
+    plain version, one launch each for the primal and the tangent and one
+    for the vmapped tangents, each inside the kernel's span."""
+    k = np.geomspace(1e-5, 1e2, 1024)
+    transform = PowerToCorrelation(k, engine='kernel')
+    plain = PowerToCorrelation(k, engine='torch')
+    pk, tangent = (a.to(cuda_device) for a in smooth_rows(k, 4096, 4096))
+    launches = counters['fftlog.launches']
+    with tracing.profile() as prof:
+        out, jvp = torch.func.jvp(lambda f: transform(f)[1], (pk,), (tangent,))
+        vmapped = torch.func.vmap(lambda t: torch.func.jvp(lambda f: transform(f)[1], (pk,), (t,))[1])(
+            torch.stack([tangent, pk]))
+        torch.cuda.synchronize()
+    assert counters['fftlog.launches'] == launches + 4
+    out_ref, jvp_ref = torch.func.jvp(lambda f: plain(f)[1], (pk,), (tangent,))
+    assert norm_err(out, out_ref) <= BAR and norm_err(jvp, jvp_ref) <= BAR
+    assert norm_err(vmapped, torch.stack([jvp_ref, out_ref])) <= BAR
+    cuda = torch.autograd.DeviceType.CUDA
+    host = [e.name() for e in prof.profiler.kineto_results.events() if e.device_type() != cuda]
+    assert host.count('cosmoprimo.fftlog.kernel') == 4
 
 
 @pytest.mark.cuda
@@ -167,9 +194,9 @@ def test_complex_multipoles_on_cuda(cuda_device):
     k = np.geomspace(1e-5, 1e2, 1024)
     pk, _ = smooth_rows(k, 4 * 500, 5)
     pk = pk.reshape(500, 4, 1024).to(cuda_device)
-    launches = fftlog_kernel.launches
+    launches = counters['fftlog.launches']
     _, got = PowerToCorrelation(k, ell=[0, 1, 2, 3], complex=True)(pk)
-    assert fftlog_kernel.launches == launches + 2 and got.dtype == torch.complex128
+    assert counters['fftlog.launches'] == launches + 2 and got.dtype == torch.complex128
     _, ref = PowerToCorrelation(k, ell=[0, 1, 2, 3], complex=True, engine='torch')(pk)
     assert norm_err(torch.view_as_real(got).flatten(-2), torch.view_as_real(ref).flatten(-2)) <= BAR
 
@@ -189,9 +216,9 @@ def test_bao_template_shapes_on_cuda(cuda_device, direction, rows):
             transform.padded_size_in_left, transform.padded_size_out_left)
     x, _ = smooth_rows(transform.x[0] if direction == 'to_xi' else 1.0 / transform.x[0], rows, rows)
     x = x.to(cuda_device)
-    launches = fftlog_kernel.launches
+    launches = counters['fftlog.launches']
     got = fftlog_kernel.fftlog_core(x, *args)
-    assert fftlog_kernel.launches == launches + 1
+    assert counters['fftlog.launches'] == launches + 1
     assert norm_err(got, fftlog_kernel.fftlog_core_torch(x, *args)) <= BAR
     grad_out = torch.from_numpy(np.random.default_rng(rows).normal(size=(rows, 1024))).to(cuda_device)
     xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
@@ -212,9 +239,9 @@ def test_hankel_gaussian_on_cuda(cuda_device, transform):
     pk, tangent = (a.to(cuda_device) for a in smooth_rows(k, 4096, 13))
     if tr.nparallel > 1:
         pk, tangent = pk[:4095].reshape(1365, 3, 1024), tangent[:4095].reshape(1365, 3, 1024)
-    launches = fftlog_kernel.launches
+    launches = counters['fftlog.launches']
     got = tr(pk)[1]
-    assert fftlog_kernel.launches == launches + 1
+    assert counters['fftlog.launches'] == launches + 1
     assert norm_err(got, plain(pk)[1]) <= BAR
     grad_out = torch.from_numpy(np.random.default_rng(15).normal(size=tuple(got.shape))).to(cuda_device)
     xk, xp = pk.clone().requires_grad_(True), pk.clone().requires_grad_(True)
@@ -372,9 +399,9 @@ def test_emulated_serving_on_cuda_against_cpu(cuda_device, tmp_path):
                 'sigma8': cosmo.get_fourier().sigma8_m[:, None], 'xi': pk.to_xi().xi[..., 0],
                 'tt': cosmo.get_harmonic().lensed_cl()['tt']}
 
-    launches = fftlog_kernel.launches
+    launches = counters['fftlog.launches']
     got = serve(cuda_device)
-    assert fftlog_kernel.launches > launches
+    assert counters['fftlog.launches'] > launches
     for name, value in serve('cpu').items():
         assert bool(torch.isfinite(got[name]).all()), name
         assert norm_err(got[name].cpu(), value) <= 1e-10, name
