@@ -3,9 +3,11 @@
 Phases, each failing the run (non-zero exit) if its check fails:
 
 1. card: needs torch.cuda; prints the card's name and power limit;
-2. build: compiles the FFTLog core kernel (csrc/fftlog_core.cu) from the
-   sources in this checkout, times the build, and fails if ptxas reports a
-   spill in any of its template instantiations (one per padded length);
+2. build: compiles the FFTLog core kernel (csrc/fftlog_core.cu) and the
+   spline solve (csrc/spline_solve.cu) from the sources in this checkout,
+   times the build, and fails if ptxas reports a spill in any of their
+   template instantiations (one per padded length; the spline's factors and
+   its 2 layouts x shared or per-row knots x values or given);
 3. kernel against plain: the kernel against its plain torch.fft version on
    the card, forward and backward, bar max|d| / max|ref| <= 1e-12 in every
    row (the kernel packs two rows into one complex FFT, so a bar over the
@@ -67,6 +69,15 @@ Phases, each failing the run (non-zero exit) if its check fails:
    kernel's achieved device-memory rate at the headline shape
    (informational).
 
+9b. the spline solve kernel at the DESI cell's shapes: shared knots over a
+   (1024, 57 344) table of columns and over the filter's (57 344, 1024)
+   rows through y.T, and 700 knots per row over 57 344 rows (each
+   cosmology's knots shared by its 7 redshifts): one launch each, every
+   system against the plain version on the card at 1e-12 of its max; the
+   kernel's, the plain version's and torch.linalg.solve_ex's times (CUDA
+   events, in turns) beside the bytes bound, and the kernel's device time;
+   the kernels line's spline_solve entry is the case furthest from its
+   bound;
 10. native pipeline: make_native_pk_pipeline_batched(nk=256, kmax=1.0,
     z=(0, 1)) at B = 64 (B = 256 takes over 30 s a call: PERF.md), its
     three step loops replayed from CUDA graphs: finite outputs, the wall
@@ -211,8 +222,13 @@ Phases, each failing the run (non-zero exit) if its check fails:
 
 Each of phases 14-17 prints its wall (median of 5 after a warm-up). The
 kernel's launches in the main-path runs of phases 4-8, 11, 14, 15, 18,
-21, 23, 24 (both ranks), 25 and 27 are summed into the "kernels" line. The last line is {"ok": true, "device":
-{...}}. Imports nothing of JAX.
+21, 23, 24 (both ranks), 25 and 27 are summed into the "kernels" line, and
+the spline kernel's launches in the same runs (phase 11's with its P(k)
+interpolator) into its entry there, each run's count printed; a run that
+builds splines on the card fails if it launched no spline kernel (all of
+them but phases 18, 24, 25 and 27's quickstart, whose counts are printed
+only). The last line is {"ok": true, "device": {...}}. Imports nothing of
+JAX.
 """
 
 import json
@@ -241,6 +257,11 @@ DEVICE = 'cuda'
 HBM_TB_S = 3.35   # H100 SXM device memory, NVIDIA's data sheet
 FP64_TFLOP_S = 34.0   # H100 SXM float64 outside the tensor cores, NVIDIA's data sheet
 B_BAO = 4096
+# the spline solve kernel's shapes in the DESI cell (8192 cosmologies x 7 z):
+# the k grid, and the filter's knots per row (peaks and padding)
+SPLINE_SYSTEMS = 57344
+SPLINE_NK = 1024
+SPLINE_ROW_KNOTS = 700
 B_BAO_HOST = 64
 DESI_Z = np.array([0.295, 0.51, 0.706, 0.93, 1.317, 1.491, 2.33])   # DESI DR1 effective redshifts
 BAO_FILTERS = ('peakaverage', 'bspline', 'ehpoly', 'hinton2017', 'savgol', 'ehsavgol')
@@ -459,6 +480,25 @@ def check(ok, message):
         raise RuntimeError(message)
 
 
+# the spline kernel's launches in each main-path run, by path: summed into the
+# kernels line's spline_solve entry
+SPLINE_LAUNCHES = {}
+
+
+def main_run_start():
+    """Set both kernels' launch counters to 0 before a main-path run."""
+    counters['fftlog.launches'] = counters['spline.launches'] = 0
+
+
+def note_splines(label, required=True):
+    """Keep the spline kernel's launches since main_run_start() as those of
+    the main-path run ``label``; fail if ``required`` (the path builds
+    splines of 4 knots or more on the card) and it launched none."""
+    SPLINE_LAUNCHES[label] = counters['spline.launches']
+    check(not required or SPLINE_LAUNCHES[label] > 0, f'{label} did not launch the spline kernel')
+    return SPLINE_LAUNCHES[label]
+
+
 def rel_err(got, ref):
     """max|got - ref| / max|ref| over each row, the worst row."""
     return ((got - ref).abs().amax(dim=-1) / ref.abs().amax(dim=-1)).max().item()
@@ -549,13 +589,14 @@ def run_pipeline(label, fn, params, nk, fftlog_kernel, card, timed=True):
     n = len(params[0])
     params_dev = [torch.from_numpy(p).to(DEVICE) for p in params]
     torch.cuda.reset_peak_memory_stats()
-    counters['fftlog.launches'] = 0
+    main_run_start()
     xi, chi, sigma8 = fn(*params_dev)
     torch.cuda.synchronize()
     launches = counters['fftlog.launches']
+    splines = note_splines(label)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f'{label}: B={n}, nk={nk}, xi {tuple(xi.shape)}, chi {tuple(chi.shape)}, sigma8 {tuple(sigma8.shape)}, '
-          f'kernel launches {launches}, peak memory {peak_gb:.2f} GB', flush=True)
+          f'kernel launches {launches}, spline kernel launches {splines}, peak memory {peak_gb:.2f} GB', flush=True)
     check(launches > 0, f'{label} did not launch the FFTLog kernel')
     check(tuple(xi.shape) == (n, 1, nk) and tuple(chi.shape) == (n, 3) and tuple(sigma8.shape) == (n,),
           f'{label} output shapes are wrong')
@@ -631,14 +672,16 @@ def sigma8_input(fftlog_kernel, Cosmology, rng, card):
         fo = cosmo.get_fourier()
         return fo.sigma8_m, fo.pk_interpolator()(torch.from_numpy(kq).to(device), torch.from_numpy(zq).to(device))
 
-    counters['fftlog.launches'] = 0
+    main_run_start()
     sigma8_m, pk = run(DEVICE, slice(None))
     torch.cuda.synchronize()
     launches = counters['fftlog.launches']
+    splines = note_splines('sigma8 input')
     s8_err = np.abs(sigma8_m.cpu().numpy() / s8 - 1).max()
     _, pk_cpu = run('cpu', slice(N_COMPARE))
     pk_err = (pk[:N_COMPARE].cpu() / pk_cpu - 1).abs().max().item()
-    print(f'sigma8 input: B={B_SIGMA8}, kernel launches {launches}, sigma8_m against the input {s8_err:.3e} '
+    print(f'sigma8 input: B={B_SIGMA8}, kernel launches {launches}, spline kernel launches {splines}, '
+          f'sigma8_m against the input {s8_err:.3e} '
           f'(bar {SIGMA8_INPUT_RTOL:g}), P(k) card vs CPU on {N_COMPARE} rows {pk_err:.3e} '
           f'(bar {CHI_SIGMA8_RTOL:g})', flush=True)
     check(launches > 0, 'the sigma8 input path did not launch the FFTLog kernel')
@@ -695,13 +738,15 @@ def bao_template(fftlog_kernel, rng, card):
         check(all(errs[name] <= bars[name] for name in errs), f'card and CPU disagree on {label}')
 
     torch.cuda.reset_peak_memory_stats()
-    counters['fftlog.launches'] = 0
+    main_run_start()
     out = run(DEVICE, slice(None))
     torch.cuda.synchronize()
     launches = counters['fftlog.launches']
+    spline_launches = note_splines('BAO template')
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f'BAO template: B={B_BAO} x {DESI_Z.size} z, nk=1024, pknow {tuple(out["ehpoly"].shape)}, '
-          f'xi {tuple(out["xi_smooth"].shape)}, kernel launches {launches}, peak memory {peak_gb:.2f} GB', flush=True)
+          f'xi {tuple(out["xi_smooth"].shape)}, kernel launches {launches}, spline kernel launches {spline_launches}, '
+          f'peak memory {peak_gb:.2f} GB', flush=True)
     check(launches > 0, 'the BAO-template path did not launch the FFTLog kernel')
     check(all(tuple(out[name].shape) == (B_BAO, 1024, DESI_Z.size) for name in BAO_FILTERS + ('xi_smooth', 'xinow')),
           'BAO-template output shapes are wrong')
@@ -760,7 +805,7 @@ def native_path(fftlog_kernel, rng, card):
 
     # 11. the DESI fiducial at full knobs against the CLASS anchors; its
     # sigma8 runs TophatVariance through the FFTLog kernel
-    counters['fftlog.launches'] = 0
+    main_run_start()
     t0 = time.perf_counter()
     desi = DESI(engine='native', extra_params={'nk_pk': 128})
     fo, th = desi.get_fourier(), desi.get_thermodynamics()
@@ -772,12 +817,14 @@ def native_path(fftlog_kernel, rng, card):
     k_bao = torch.from_numpy(K_H[BAO_BAND]).to(DEVICE)
     pk0, pk1 = (interp(k_bao, torch.tensor([z], dtype=torch.float64, device=DEVICE))[:, 0].cpu().numpy()
                 for z in (0.0, 1.0))
+    splines = note_splines('native DESI engine')
     errs = {'sigma8_m': abs(sigma8_m / SIGMA8_M_CLASS - 1), 'sigma8_cb': abs(sigma8_cb / SIGMA8_CB_CLASS - 1),
             'pk(z=0)': np.max(np.abs(pk0 / PK_M_Z0[BAO_BAND] - 1)), 'pk(z=1)': np.max(np.abs(pk1 / PK_M_Z1[BAO_BAND] - 1))}
     z_drag, z_star, rs_drag = th.z_drag.item(), th.z_star_noreion.item(), th.rs_drag.item()
     tau = abs(th.tau_reio.item() - desi['tau_reio'].item())
     print(f'native DESI engine (nk_pk=128, kmax_pk=10: 10240 + 6144 steps): built in {build:.1f} s on {card}; '
-          f'kernel launches {launches}; against CLASS: sigma8_m {sigma8_m:.6f} ({errs["sigma8_m"]:.2e}, bar 5e-3), '
+          f'kernel launches {launches}, spline kernel launches {splines} (with its P(k) interpolator); against '
+          f'CLASS: sigma8_m {sigma8_m:.6f} ({errs["sigma8_m"]:.2e}, bar 5e-3), '
           f'sigma8_cb {sigma8_cb:.6f} ({errs["sigma8_cb"]:.2e}, bar 5e-3), P(k) in the BAO band z=0 '
           f'{errs["pk(z=0)"]:.2e} and z=1 {errs["pk(z=1)"]:.2e} (bar 1.2e-2); z_drag {z_drag:.3f} (bar 2.0 from '
           f'{Z_DRAG_PLANCK}), z_star_noreion {z_star:.3f} (bar 2.5 from {Z_STAR_PLANCK}), rs_drag {rs_drag:.4f} Mpc/h '
@@ -912,14 +959,15 @@ def analytic_engines(fftlog_kernel, rng, card):
         return out
 
     torch.cuda.reset_peak_memory_stats()
-    counters['fftlog.launches'] = 0
+    main_run_start()
     out = run(DEVICE, slice(None))
     torch.cuda.synchronize()
     n = counters['fftlog.launches']
+    splines = note_splines('variants with one massive species')
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f'variants with one massive species: B={B_VARIANTS} x {DESI_Z.size} z, nk={NK_HMCODE}, mead (cold field '
           f'for sigma(R)) and halofit, P(k) and xi {tuple(out["pk mead"].shape)}, kernel '
-          f'launches {n}, peak memory {peak_gb:.2f} GB', flush=True)
+          f'launches {n}, spline kernel launches {splines}, peak memory {peak_gb:.2f} GB', flush=True)
     check(n == 2, 'the variants phase did not launch the FFTLog kernel once for each table')
     check(all(bool(torch.isfinite(value).all()) for value in out.values()), 'variants outputs are not all finite')
     ref = run('cpu', slice(N_COMPARE))
@@ -1066,18 +1114,21 @@ def cmb_spectra(fftlog_kernel, rng, card):
         for call in range(2):
             stages.clear()
             torch.cuda.reset_peak_memory_stats()
-            counters['fftlog.launches'] = 0
+            main_run_start()
             t0 = time.perf_counter()
             out = spectra(DEVICE, slice(None), ELLMAX_CL)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-            launches = counters['fftlog.launches'] if launches is None else launches
+            if launches is None:
+                launches = counters['fftlog.launches']
+                note_splines('CMB spectra', required=False)
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             split = ', '.join(f'{label} {stages.get(label, 0.0):.3f} s' for _, _, label in wrapped)
             split += f', the rest (set-up, Bessel tables, splines) {walls[-1] - sum(stages.values()):.3f} s'
             print(f'CMB spectra, call {call + 1}: B={B_CL}, ellmax_cl={ELLMAX_CL} (lmax {ELLMAX_CL + 400}), r={R_CL} '
                   f'(tensors to l = 600): wall {walls[-1]:.3f} s, peak memory {peak_gb:.2f} GB; stages: {split}; '
-                  f'FFTLog kernel launches {counters["fftlog.launches"]} on {card}', flush=True)
+                  f'FFTLog kernel launches {counters["fftlog.launches"]}, spline kernel launches '
+                  f'{counters["spline.launches"]} on {card}', flush=True)
     finally:
         _patched(old)
     for kind, table in out.items():
@@ -1245,13 +1296,15 @@ def emulator_serving(fftlog_kernel, rng, card):
             return out
 
         torch.cuda.reset_peak_memory_stats()
-        counters['fftlog.launches'] = 0
+        main_run_start()
         out = serve(params, DEVICE)
         torch.cuda.synchronize()
         launches = counters['fftlog.launches']
+        splines = note_splines('emulated serving')
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         print(f'emulated (native-base layout, {len(state["engines"])} nets): B={B_EMU}, {len(out)} outputs, '
-              f'kernel launches {launches}, peak memory {peak_gb:.2f} GB; state built and written in '
+              f'kernel launches {launches}, spline kernel launches {splines}, peak memory {peak_gb:.2f} GB; state '
+              f'built and written in '
               f'{build_s:.2f} s', flush=True)
         check(launches > 0, 'the emulated Fourier section did not launch the FFTLog kernel')
         check(all(bool(torch.isfinite(value).all()) for value in out.values()), 'emulated outputs are not all finite')
@@ -1538,10 +1591,11 @@ def training(fftlog_kernel, rng, card):
             fo = cosmo.get_fourier()
             return {'pk': fo.pk_interpolator()(k, torch.from_numpy(DESI_Z).to(device)), 'sigma8': fo.sigma8_m[..., None]}
 
-        counters['fftlog.launches'] = 0
+        main_run_start()
         out = serve(params, DEVICE)
         torch.cuda.synchronize()
         launches = counters['fftlog.launches']
+        note_splines('trained fourier emulator')
         check(launches > 0, 'the trained fourier emulator did not launch the FFTLog kernel')
         check(all(bool(torch.isfinite(value).all()) for value in out.values()),
               'the trained fourier emulator does not serve finite values')
@@ -1629,7 +1683,7 @@ def parallel_worker(port, nproc, rank, outdir):
             check(comm.recv(source=1, tag=3) == ('x' if rank == 0 else None), 'send/recv')
         comm.barrier()
         t0 = time.perf_counter()
-        counters['fftlog.launches'] = 0
+        main_run_start()
         if nproc == 2:
             mesh = make_mesh()
             rng = np.random.default_rng(24)
@@ -1651,6 +1705,7 @@ def parallel_worker(port, nproc, rank, outdir):
             fits = {(2, 2): sharded_fit(make_mesh(shape=(2, 2)), device)}
         torch.cuda.synchronize()
         report['launches'] = counters['fftlog.launches']
+        report['spline_launches'] = counters['spline.launches']
         report['walls']['main path'] = time.perf_counter() - t0
         for shape, (arrays, epochs) in fits.items():
             report[f'fit {shape} epochs'] = epochs
@@ -1727,6 +1782,7 @@ def parallel(card):
     wall2 = time.perf_counter() - t0
     errors = reports[0]['errors']
     launches = sum(r['launches'] for r in reports)
+    SPLINE_LAUNCHES['parallel, 2 ranks'] = sum(r['spline_launches'] for r in reports)
     print(f'parallel (2 ranks, gloo; both on the one card: NCCL refuses two ranks on one device): the '
           f'collectives and point-to-point ok; QMC fan-out of {N_QMC} points against one process, max |d| '
           f'{errors["qmc"]:.3e} (bar 0: the same chunks); world wall {wall2:.1f} s, rank walls '
@@ -2069,11 +2125,12 @@ def wrapper_engines(fftlog_kernel, card):
     try:
         for name, kwargs in cases:
             camb = name not in ('class', 'axiclass', 'mochiclass', 'negnuclass', 'dsclass')
-            counters['fftlog.launches'] = 0
+            main_run_start()
             out = section_outputs(Cosmology(engine=name, device=DEVICE, **base, **kwargs), camb)
             torch.cuda.synchronize()
             check(counters['fftlog.launches'] > 0, f'engine {name!r} did not launch the FFTLog kernel')
             launches += counters['fftlog.launches']
+            SPLINE_LAUNCHES['wrapper engines'] = SPLINE_LAUNCHES.get('wrapper engines', 0) + counters['spline.launches']
             ref = section_outputs(Cosmology(engine=name, device='cpu', **base, **kwargs), camb)
             for key, value in ref.items():
                 got = out[key]
@@ -2268,9 +2325,10 @@ def api_surface(fftlog_kernel, rng, card):
         check(err <= KERNEL_BAR, f"set_fft_engine('{name}') disagrees with the 'torch' engine")
     # (c) the quickstart on the card against the CPU
     t1 = time.perf_counter()
-    counters['fftlog.launches'] = 0
+    main_run_start()
     on_card = quickstart.main(['--device', 'cuda'])
     n = counters['fftlog.launches']
+    note_splines('quickstart', required=False)
     launches += n
     wall_card = time.perf_counter() - t1
     t1 = time.perf_counter()
@@ -2340,6 +2398,81 @@ def kernel_bound_ms(x, args):
     return (bytes_ms, 'bytes') if bytes_ms >= ops_ms else (ops_ms, 'operations')
 
 
+def spline_solve(card):
+    """Phase 9b: the spline solve kernel at the DESI cell's shapes, against
+    its plain version on the card (every system, per system at
+    KERNEL_BAR), then CUDA-event times of the kernel, the plain version and
+    torch.linalg.solve_ex on the dense matrix (the yardstick; no library
+    call solves knots per row), in turns, beside the bytes bound. Returns
+    the kernels line's entry: the case furthest from its bound (its label
+    under 'case'), with the largest difference from plain of all three."""
+    from cosmoprimo_tpu_torch.ops import spline
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def values(knots, rows):
+        amp = torch.rand(rows, 1, generator=g, device=dev, dtype=torch.float64)
+        wiggle = torch.rand(rows, knots.shape[-1], generator=g, device=dev, dtype=torch.float64)
+        return (1.0 + amp) * torch.sin(3.0 * knots) + 0.1 * wiggle
+
+    x = torch.log10(torch.from_numpy(np.geomspace(1e-5, 1e2, SPLINE_NK))).to(dev)
+    rows = values(x, SPLINE_SYSTEMS)
+    columns = rows.T.contiguous()
+    # knots per cosmology (the filter's peaks, rescaled), shared by its 7 redshifts
+    xr = torch.from_numpy(np.cumsum(10 ** np.random.default_rng(0).uniform(-3.0, -1.0, (SPLINE_SYSTEMS // 7, 1,
+                                                                                        SPLINE_ROW_KNOTS)), axis=-1))
+    xr = xr.to(dev).expand(-1, 7, -1).reshape(SPLINE_SYSTEMS, SPLINE_ROW_KNOTS)
+    fr = values(xr, SPLINE_SYSTEMS)
+    h = torch.diff(x)
+    T = torch.diag((h[:-1] + h[1:]) / 3.0) + torch.diag(h[1:-1] / 6.0, 1) + torch.diag(h[1:-1] / 6.0, -1)
+    rhs = torch.diff(torch.diff(columns, dim=0) / h[:, None], dim=0)
+    mb = 8 * rows.numel() / 1e6
+    cases = {   # label: kernel, plain, library yardstick, bytes (each input read and the output written once)
+        f'shared knots, columns ({SPLINE_NK}, {SPLINE_SYSTEMS})':
+            (lambda: spline.natural_cubic_coeffs(x, columns), lambda: spline._coeffs_plain(x, columns),
+             lambda: torch.linalg.solve_ex(T, rhs), 2 * mb),
+        f'shared knots, rows y.T ({SPLINE_SYSTEMS}, {SPLINE_NK})':
+            (lambda: spline.natural_cubic_coeffs(x, rows.T).T, lambda: spline._coeffs_plain(x, rows.T).T,
+             lambda: torch.linalg.solve_ex(T, rhs), 2 * mb),
+        f'knots per row ({SPLINE_SYSTEMS}, {SPLINE_ROW_KNOTS})':
+            (lambda: spline.natural_cubic_coeffs_rows(xr, fr), lambda: spline._coeffs_rows_plain(xr, fr), None,
+             3 * 8 * fr.numel() / 1e6),
+    }
+    lines = []
+    for label, (kernel, plain, library, mbytes) in cases.items():
+        launches = counters['spline.launches']
+        got = kernel()
+        ref = plain()
+        torch.cuda.synchronize()
+        check(counters['spline.launches'] == launches + 1, f'the spline kernel at {label} is not one launch')
+        axis = 0 if label.startswith('shared knots, columns') else -1
+        err = ((got - ref).abs().amax(dim=axis) / ref.abs().amax(dim=axis)).max().item()
+        max_abs = (got - ref).abs().max().item()
+        del got, ref
+        kernel_ms = plain_ms = 0.0
+        for order in (('plain', 'kernel'), ('kernel', 'plain')):
+            for name in order:
+                if name == 'kernel':
+                    kernel_ms += cuda_ms(kernel, reps=TIMED_LAUNCHES) / 2
+                else:
+                    plain_ms += cuda_ms(plain, reps=10) / 2
+        library_ms = cuda_ms(library, reps=10) if library is not None else None
+        bound_ms = mbytes * 1e6 / (HBM_TB_S * 1e12) * 1e3
+        device, host = device_ms(kernel, reps=TIMED_LAUNCHES)
+        device = 'not measured (the profiler shows no device time)' if device is None else f'{device:.4f} ms'
+        library = 'none (no library call solves knots per row)' if library_ms is None else f'{library_ms:.4f} ms'
+        print(f'spline kernel vs plain on the card, {label}: {err:.3e} per system (bar {KERNEL_BAR:g}); time: '
+              f'kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg.solve_ex {library}, bound '
+              f'{bound_ms:.4f} ms (bytes, {mbytes:.0f} MB; the kernel at {bound_ms / kernel_ms:.1%} of it), device '
+              f'(torch.profiler) {device}, the host\'s enqueue {host:.4f} ms; in turns, on {card}', flush=True)
+        check(err <= KERNEL_BAR, f'the spline kernel disagrees with plain at {label}')
+        lines.append({'name': 'spline_solve', 'route': 'cuda', 'source': 'cosmoprimo_tpu_torch/csrc/spline_solve.cu',
+                      'replaces': None, 'case': label, 'max_abs_err': max_abs, 'ms': kernel_ms, 'plain_ms': plain_ms,
+                      'bound_ms': bound_ms, 'bound_by': 'bytes', 'library_ms': library_ms})
+    line = min(lines, key=lambda entry: entry['bound_ms'] / entry['ms'])
+    return dict(line, max_abs_err=max(entry['max_abs_err'] for entry in lines))
+
+
 def library_fft_ms(x, args):
     """CUDA-event time of the library's FFT calls on the same rows: the
     padded, prefactored rows through torch.fft.rfft, the product with u and
@@ -2374,11 +2507,13 @@ def main():
     print(f'build: {time.perf_counter() - t0:.2f} s ({"compiled" if log is not None else "cached"}) {lib_path}')
     if log:
         print(log.strip())
-        entries = log.count('Compiling entry function')
+        entries = re.findall(r"Compiling entry function '([^']+)'", log)
         spills = [int(v) for v in re.findall(r'(\d+) bytes spill (?:stores|loads)', log)]
-        print(f'ptxas: {entries} entry functions, spill bytes {sum(spills)}', flush=True)
-        check(entries == fftlog_kernel.MAX_LOG2N - fftlog_kernel.MIN_LOG2N + 1,
-              'the build does not hold one kernel per padded length')
+        print(f'ptxas: {len(entries)} entry functions, spill bytes {sum(spills)}', flush=True)
+        check(sum('fftlog_pair_kernel' in e for e in entries) == fftlog_kernel.MAX_LOG2N - fftlog_kernel.MIN_LOG2N + 1,
+              'the build does not hold one FFTLog kernel per padded length')
+        # the spline solve: its factors, and 2 layouts x shared or per-row knots x values or given
+        check(sum('spline_' in e for e in entries) == 9, 'the build does not hold the spline kernels')
         check(not any(spills), 'ptxas reports register spills')
 
     # 3. kernel against plain, on the setup arrays of the real transforms
@@ -2550,6 +2685,9 @@ def main():
     print(f'informational: the kernel moves {gbytes:.4f} GB at the headline shape, {gbytes / kernel_ms:.3f} TB/s, '
           f'{gbytes / kernel_ms / HBM_TB_S:.1%} of {HBM_TB_S} TB/s', flush=True)
 
+    # 9b. the spline solve kernel at the DESI cell's shapes
+    spline_line = spline_solve(card)
+
     # 10-13. the native Boltzmann path
     launches += native_path(fftlog_kernel, rng, card)
 
@@ -2585,11 +2723,14 @@ def main():
     # 27. the public API surface
     launches += api_surface(fftlog_kernel, rng, card)
 
+    spline_line['launches'] = sum(SPLINE_LAUNCHES.values())
+    print('spline kernel launches in the main-path runs: '
+          + ', '.join(f'{label} {n}' for label, n in SPLINE_LAUNCHES.items()), flush=True)
     print(json.dumps({'kernels': [{
         'name': 'fftlog_core', 'route': 'cuda', 'source': 'cosmoprimo_tpu_torch/csrc/fftlog_core.cu',
         'replaces': 'cosmoprimo_tpu/ops/pallas_fft.py:244', 'launches': launches,
         'max_abs_err': max_abs_err, 'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
-        'bound_by': bound_by, 'library_ms': library_ms}]}))
+        'bound_by': bound_by, 'library_ms': library_ms}, spline_line]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))
     return 0

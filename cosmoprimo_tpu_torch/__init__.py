@@ -1,9 +1,10 @@
 """cosmoprimo_tpu_torch: the port of cosmoprimo_tpu to PyTorch and CUDA.
 
 Float64 tensors throughout, batch-first: parameters are (B,) tensors and
-every function works on the whole batch in one call. The FFTLog core runs as
-a hand-written CUDA kernel on CUDA tensors (ops/fftlog_kernel.py,
-csrc/fftlog_core.cu). This package imports neither JAX nor cosmoprimo_tpu.
+every function works on the whole batch in one call. The FFTLog core and the
+natural-spline solve run as hand-written CUDA kernels on CUDA tensors
+(ops/fftlog_kernel.py, csrc/fftlog_core.cu; ops/spline_kernel.py,
+csrc/spline_solve.cu). This package imports neither JAX nor cosmoprimo_tpu.
 """
 
 from . import constants

@@ -23,7 +23,8 @@ the forward kernel.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` on first use, from the
 sources in ``csrc/`` only, into ``_build/`` next to this package, keyed by a
-hash of those sources.
+hash of those sources. The library holds every kernel of ``csrc/``: the
+spline solve (``ops/spline_kernel.py``) loads it through :func:`_library`.
 """
 
 import ctypes
@@ -72,7 +73,7 @@ def find_nvcc():
     for path in candidates:
         if path and os.access(path, os.X_OK):
             return path
-    raise RuntimeError('nvcc not found: set CUDA_HOME or put nvcc on PATH to build csrc/fftlog_core.cu')
+    raise RuntimeError('nvcc not found: set CUDA_HOME or put nvcc on PATH to build the kernels of csrc/')
 
 
 def _sources():

@@ -3,45 +3,63 @@
 Same semantics as scipy.interpolate.CubicSpline(bc_type='natural'). Two
 layouts:
 
-- shared knots, knots first: :func:`natural_cubic_coeffs` solves the
-  tridiagonal system by one LU factorisation of the (n-2, n-2) matrix, which
-  depends on the knots only, applied to every value column at once (the
-  knots are a small static grid, the columns are the batch); this is what
-  :class:`Interpolator1D` and :class:`Interpolator2D` use;
+- shared knots, knots first: :func:`natural_cubic_coeffs`, what
+  :class:`Interpolator1D` and :class:`Interpolator2D` use (the knots are a
+  small static grid, the columns are the batch);
 - knots per row, knots last: :func:`natural_cubic_coeffs_rows` and
   :func:`cubic_eval_rows`, for knots that differ by cosmology (the BAO
-  peak positions rescaled by each cosmology's sound horizon). Their
-  tridiagonal systems are solved together by :func:`tridiagonal_solve`,
-  log-depth scans over the knot axis as in the JAX package.
+  peak positions rescaled by each cosmology's sound horizon).
+
+On CUDA tensors both solve their tridiagonal systems with the hand-written
+kernel of ``csrc/spline_solve.cu`` (:mod:`.spline_kernel`), one Thomas pass
+a system, through :class:`_NaturalSpline` (reverse and forward mode, vmap);
+the shared-knot case is the per-row case with the knots broadcast. On CPU
+tensors they take the plain versions: one LU factorisation of the (n-2,
+n-2) matrix applied to every column (shared knots), and
+:func:`tridiagonal_solve`, log-depth scans over the knot axis as in the JAX
+package (knots per row).
 
 Also the batched linear :func:`interp`.
 """
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import tracing
+from . import spline_kernel
 
 
 def natural_cubic_coeffs(x, f):
     """Second derivatives M at the knots of the natural cubic spline through
     (x, f). ``x``: (n,) strictly increasing; ``f``: (n, ...).
 
-    Returns ``M`` of shape ``f.shape`` with M[0] = M[-1] = 0.
+    Returns ``M`` of shape ``f.shape`` with M[0] = M[-1] = 0. On CUDA
+    tensors the kernel solves it, as :func:`natural_cubic_coeffs_rows` on
+    the view ``f.movedim(0, -1)``; on CPU tensors :func:`_coeffs_plain`.
     """
     n = x.shape[0]
     if n == 2:
         return torch.zeros_like(f)
+    if x.is_cuda or f.is_cuda:
+        return natural_cubic_coeffs_rows(x, f.movedim(0, -1)).movedim(-1, 0)
     with tracing.span('cosmoprimo.spline_build'):
-        h = torch.diff(x)
-        df = torch.diff(f, dim=0) / h.reshape((n - 1,) + (1,) * (f.dim() - 1))
-        # interior rows: h[i-1]/6 M[i-1] + (h[i-1]+h[i])/3 M[i] + h[i]/6 M[i+1] = df[i] - df[i-1]
-        rhs = (df[1:] - df[:-1]).reshape(n - 2, -1)
-        off = h[1:-1] / 6.0
-        T = torch.diag((h[:-1] + h[1:]) / 3.0) + torch.diag(off, 1) + torch.diag(off, -1)
-        Mi = torch.linalg.solve_ex(T, rhs)[0].reshape((n - 2,) + f.shape[1:])
-        zero = f.new_zeros((1,) + f.shape[1:])
-        return torch.cat([zero, Mi, zero], dim=0)
+        return _coeffs_plain(x, f)
+
+
+def _coeffs_plain(x, f):
+    """The plain version of :func:`natural_cubic_coeffs`: one LU of the
+    (n-2, n-2) matrix applied to every column."""
+    n = x.shape[0]
+    h = torch.diff(x)
+    df = torch.diff(f, dim=0) / h.reshape((n - 1,) + (1,) * (f.dim() - 1))
+    # interior rows: h[i-1]/6 M[i-1] + (h[i-1]+h[i])/3 M[i] + h[i]/6 M[i+1] = df[i] - df[i-1]
+    rhs = (df[1:] - df[:-1]).reshape(n - 2, -1)
+    off = h[1:-1] / 6.0
+    T = torch.diag((h[:-1] + h[1:]) / 3.0) + torch.diag(off, 1) + torch.diag(off, -1)
+    Mi = torch.linalg.solve_ex(T, rhs)[0].reshape((n - 2,) + f.shape[1:])
+    zero = f.new_zeros((1,) + f.shape[1:])
+    return torch.cat([zero, Mi, zero], dim=0)
 
 
 def linear_eval(x, f, t, nu=0):
@@ -348,27 +366,144 @@ def tridiagonal_solve(dl, d, du, b):
     return _linear_recurrence(-w.flip(-1), g.flip(-1)).flip(-1)
 
 
+def _diagonals(h):
+    """Sub-, main and super-diagonals of the natural-spline matrix for the
+    cell widths ``h`` (..., n - 1), as :func:`tridiagonal_solve` takes them."""
+    zero = torch.zeros_like(h[..., :1])
+    return (torch.cat([zero, h[..., 1:-1] / 6.0], dim=-1), (h[..., :-1] + h[..., 1:]) / 3.0,
+            torch.cat([h[..., 1:-1] / 6.0, zero], dim=-1))
+
+
+def _pad_ends(Mi):
+    zero = torch.zeros_like(Mi[..., :1])
+    return torch.cat([zero, Mi, zero], dim=-1)
+
+
+def _coeffs_rows_plain(x, f):
+    """The plain version of :func:`natural_cubic_coeffs_rows`."""
+    h = torch.diff(x, dim=-1)
+    df = torch.diff(f, dim=-1) / h
+    rhs = df[..., 1:] - df[..., :-1]
+    if x.shape[-1] == 3:
+        return _pad_ends(rhs / ((h[..., :-1] + h[..., 1:]) / 3.0))
+    return _pad_ends(tridiagonal_solve(*_diagonals(h), rhs))
+
+
+def _solve(x, v, given):
+    """M (..., n) with zero ends from the interior rows of the natural-spline
+    system of knots ``x`` (..., n): right-hand side from the values ``v``
+    (..., n), or ``v`` (..., n - 2) itself with ``given``. The kernel on
+    CUDA tensors, the plain scans on CPU tensors."""
+    if x.is_cuda or v.is_cuda:
+        return spline_kernel.launch(x, v, given)
+    if given:
+        return _pad_ends(tridiagonal_solve(*_diagonals(torch.diff(x, dim=-1)), v))
+    return _coeffs_rows_plain(x, v)
+
+
+def _tangent_rhs(x, v, M, x_t, v_t, given):
+    """The right-hand side whose solve is M's tangent: dM = T^-1 (dr - dT M),
+    r the right-hand side (computed from the values, or ``v`` given) and T
+    the matrix, for the tangents ``x_t`` and ``v_t`` (either may be None)."""
+    if given:
+        q = v_t if v_t is not None else 0.0
+    else:
+        h = torch.diff(x, dim=-1)
+        ds = torch.diff(v_t, dim=-1) if v_t is not None else 0.0
+        if x_t is not None:
+            ds = ds - torch.diff(v, dim=-1) / h * torch.diff(x_t, dim=-1)
+        ds = ds / h                                     # the slopes' tangent
+        q = ds[..., 1:] - ds[..., :-1]
+    if x_t is not None:
+        dh = torch.diff(x_t, dim=-1)
+        q = q - (dh[..., :-1] * (M[..., :-2] + 2.0 * M[..., 1:-1])
+                 + dh[..., 1:] * (2.0 * M[..., 1:-1] + M[..., 2:])) / 6.0
+    return q
+
+
+def _adjoint(x, v, M, lam, given):
+    """The gradients of <g, M> for ``x`` and ``v`` (broadcast shapes), with
+    ``lam`` = T^-1 g (zero ends): the transpose of :func:`_tangent_rhs`."""
+    h = torch.diff(x, dim=-1)
+    g_h = -(lam[..., 1:] * (M[..., :-1] + 2.0 * M[..., 1:]) + lam[..., :-1] * (2.0 * M[..., :-1] + M[..., 1:])) / 6.0
+    if given:
+        g_v = lam[..., 1:-1]
+    else:
+        w = (lam[..., :-1] - lam[..., 1:]) / h
+        g_v = F.pad(w, (1, 0)) - F.pad(w, (0, 1))
+        g_h = g_h - torch.diff(v, dim=-1) / h * w
+    return F.pad(g_h, (1, 0)) - F.pad(g_h, (0, 1)), g_v
+
+
+def _vmapped(t, dim, nbatch):
+    """``t`` with its vmapped axis ``dim`` first and, after it, as many
+    leading axes as the broadcast batch (``nbatch``) + the knot axis."""
+    if dim is None:
+        return t
+    t = t.movedim(dim, 0)
+    return t[(slice(None),) + (None,) * (nbatch + 1 - (t.dim() - 1))]
+
+
+class _NaturalSpline(torch.autograd.Function):
+    """M = :func:`_solve` (x, v, given), differentiable in the knots and the
+    values. The matrix T is symmetric, so the tangent (``jvp``) and the
+    adjoint (``backward``) are each one more solve with a right-hand side
+    given, dM = T^-1 (dr - dT M): on CUDA tensors one more launch of the
+    kernel. ``vmap`` moves the vmapped axes in front of the batch: one
+    launch."""
+
+    @staticmethod
+    def forward(x, v, given):
+        return _solve(x, v, given)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, v, given = inputs
+        ctx.given = given
+        ctx.save_for_backward(x, v, output)
+        ctx.save_for_forward(x, v, output)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, v, M = ctx.saved_tensors
+        lam = _NaturalSpline.apply(x, grad[..., 1:-1], True)
+        g_x, g_v = _adjoint(x, v, M, lam, ctx.given)
+        return (g_x.sum_to_size(x.shape) if ctx.needs_input_grad[0] else None,
+                g_v.sum_to_size(v.shape) if ctx.needs_input_grad[1] else None, None)
+
+    @staticmethod
+    def jvp(ctx, x_t, v_t, _):
+        x, v, M = ctx.saved_tensors
+        return _NaturalSpline.apply(x, _tangent_rhs(x, v, M, x_t, v_t, ctx.given), True)
+
+    @staticmethod
+    def vmap(info, in_dims, x, v, given):
+        x_dim, v_dim = in_dims[:2]
+
+        def logical(t, dim):
+            return t.shape[:-1] if dim is None else t.shape[:dim] + t.shape[dim + 1:-1]
+
+        nbatch = len(torch.broadcast_shapes(logical(x, x_dim), logical(v, v_dim)))
+        return _NaturalSpline.apply(_vmapped(x, x_dim, nbatch), _vmapped(v, v_dim, nbatch), given), 0
+
+
 def natural_cubic_coeffs_rows(x, f):
     """Second derivatives M (..., n) of the natural cubic splines through
     (x, f) with the knots on the LAST axis: ``x`` (..., n) strictly
-    increasing along it, broadcasting against ``f`` (..., n)."""
+    increasing along it, broadcasting against ``f`` (..., n).
+
+    On CUDA tensors (float64, one device, else it raises) the kernel solves
+    them (from 4 knots), differentiable in ``x`` and ``f``; on CPU tensors
+    the plain version."""
     n = x.shape[-1]
     if n == 2:
         return torch.zeros_like(f + x)
     with tracing.span('cosmoprimo.spline_build'):
-        h = torch.diff(x, dim=-1)
-        df = torch.diff(f, dim=-1) / h
-        rhs = df[..., 1:] - df[..., :-1]
-        d = (h[..., :-1] + h[..., 1:]) / 3.0
-        if n == 3:
-            Mi = rhs / d
-        else:
-            zero = torch.zeros_like(h[..., :1])
-            dl = torch.cat([zero, h[..., 1:-1] / 6.0], dim=-1)
-            du = torch.cat([h[..., 1:-1] / 6.0, zero], dim=-1)
-            Mi = tridiagonal_solve(dl, d, du, rhs)
-        zero = torch.zeros_like(Mi[..., :1])
-        return torch.cat([zero, Mi, zero], dim=-1)
+        if x.is_cuda or f.is_cuda:
+            spline_kernel.check(x, f)
+            if n > 3:
+                return _NaturalSpline.apply(x, f, False)
+        return _coeffs_rows_plain(x, f)
 
 
 def cubic_eval_rows(x, f, M, t):

@@ -27,6 +27,12 @@ with dict operations (``counters['fftlog.launches'] = 0``).
 - ``fftlog.shapes``: those launches by ``(rows, size, padded, nparallel)``;
 - ``fftlog.calls``: calls of the FFTLog core on either device, by the same
   shape: the kernel's on CUDA tensors, its plain version's on CPU tensors;
+- ``spline.launches``: the spline solve kernel's launches
+  (``ops/spline_kernel.py``), counted once the launch has returned without
+  error; CPU tensors take the plain version and launch nothing;
+- ``spline.shapes``: those launches by ``(systems, knots, layout)``, the
+  layout 'tiled' or 'strided' (the knot axis contiguous or not) and
+  'shared' or 'rows' (the knots shared by every system or not);
 - ``fftlog_kernel.builds``: nvcc runs of the kernel's build in this process;
 - ``fftlog_kernel.build_s``: host seconds of the kernel library's first
   use: its build (or the check of a cached build) and its load;
@@ -44,6 +50,8 @@ counters = {
     'fftlog.launches': 0,
     'fftlog.shapes': {},
     'fftlog.calls': {},
+    'spline.launches': 0,
+    'spline.shapes': {},
     'fftlog_kernel.builds': 0,
     'fftlog_kernel.build_s': 0.0,
     'bao_filter.fiducial_fits': 0,

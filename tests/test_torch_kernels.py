@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions:
+the FFTLog core and the spline solve.
 
 Every test here needs a CUDA device and nvcc, and skips without them. They
 need no JAX; tests/conftest.py imports it, so on a machine without JAX run
@@ -21,7 +22,7 @@ import pytest
 import torch
 
 from cosmoprimo_tpu_torch import CorrelationToPower, GaussianVariance, HankelTransform, PowerToCorrelation, TophatVariance
-from cosmoprimo_tpu_torch.ops import fftlog_kernel
+from cosmoprimo_tpu_torch.ops import fftlog_kernel, spline
 from cosmoprimo_tpu_torch import tracing
 from cosmoprimo_tpu_torch.tracing import counters
 
@@ -434,3 +435,210 @@ def test_training_on_cuda_against_cpu(cuda_device):
     pred = emulator.predict({'a': torch.tensor([1.0, 1.1], device=cuda_device),
                              'b': torch.tensor([0.0, 0.1], device=cuda_device)})['y']
     assert pred.is_cuda and pred.shape == (2, 20) and bool(torch.isfinite(pred).all())
+
+
+# The spline solve kernel (csrc/spline_solve.cu): the card against the plain
+# version on the CPU, per system (a spline's row or column along its knots).
+# Both are float64 eliminations of the same diagonally dominant system in
+# another order of operations (Thomas against LU or log-depth scans).
+
+SPLINE_SAMPLE = 512      # systems of a large case compared against the CPU
+
+
+def spline_err(got, ref, dim=-1):
+    """max|got - ref| / max|ref| along the knot axis ``dim``, the worst system."""
+    return ((got - ref).abs().amax(dim=dim) / ref.abs().amax(dim=dim)).max().item()
+
+
+def log_knots(n):
+    return torch.log10(torch.from_numpy(np.geomspace(1e-5, 1e2, n)))
+
+
+def nonuniform_knots(rng, shape, n):
+    """Knots whose neighbouring cells differ by up to 100x in width."""
+    return torch.from_numpy(np.cumsum(10 ** rng.uniform(-2.0, 0.0, shape + (n,)), axis=-1))
+
+
+def spline_values(knots, shape, seed):
+    """A smooth curve in the knots plus a random wiggle, per system."""
+    g = torch.Generator(device=knots.device).manual_seed(seed)
+    amp = torch.rand(shape + (1,), generator=g, device=knots.device, dtype=torch.float64)
+    wiggle = torch.rand(shape + (knots.shape[-1],), generator=g, device=knots.device, dtype=torch.float64)
+    return (1.0 + amp) * torch.sin(3.0 * knots) + 0.1 * wiggle
+
+
+def sample(count, seed):
+    idx = np.random.default_rng(seed).choice(count, size=min(SPLINE_SAMPLE, count), replace=False)
+    return torch.from_numpy(np.sort(np.concatenate([[0, count - 1], idx])))
+
+
+def spline_launch(layout):
+    """The launches of ``layout`` since the counters were read: a callable."""
+    before = dict(counters['spline.shapes'])
+    return lambda: sum(n - before.get(shape, 0) for shape, n in counters['spline.shapes'].items()
+                       if shape[2] == layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case,layout', [('columns', 'strided.shared'), ('rows', 'tiled.shared'),
+                                         ('z_view', 'strided.shared')])
+def test_spline_shared_knots_desi_shapes(cuda_device, case, layout):
+    """Shared knots at the DESI template's shapes: a (1024, 57 344) table of
+    columns (Interpolator2D's Mx and Mxy), the filter's ``y.T`` of (57 344,
+    1024) rows, and the 7-knot z-spline of a (1024, 7, 8192) table through
+    ``movedim`` (Interpolator2D's My), each taken as it lies."""
+    launches = spline_launch(layout)
+    if case == 'z_view':
+        z = torch.tensor([0.295, 0.51, 0.706, 0.93, 1.317, 1.491, 2.33], dtype=torch.float64)
+        fun = spline_values(z.to(cuda_device), (1024, 8192), 1).movedim(-1, 1).contiguous()   # (1024, 7, 8192)
+        got = spline.natural_cubic_coeffs(z.to(cuda_device), fun.movedim(1, 0)).movedim(0, 1)
+        assert got.is_contiguous()
+        idx = sample(8192, 1)
+        ref = spline.natural_cubic_coeffs(z, fun[:, :, idx].cpu().movedim(1, 0)).movedim(0, 1)
+        err = spline_err(got[:, :, idx].cpu(), ref, dim=1)
+    else:
+        x = log_knots(1024)
+        rows = spline_values(x.to(cuda_device), (57344,), 2)
+        if case == 'columns':
+            table = rows.T.contiguous()
+            got = spline.natural_cubic_coeffs(x.to(cuda_device), table)
+        else:
+            table = rows
+            got = spline.natural_cubic_coeffs(x.to(cuda_device), rows.T).T
+            assert got.is_contiguous()
+        idx = sample(57344, 2)
+        if case == 'columns':
+            ref = spline.natural_cubic_coeffs(x, table[:, idx].cpu())
+            err = spline_err(got[:, idx].cpu(), ref, dim=0)
+        else:
+            ref = spline.natural_cubic_coeffs(x, table[idx].cpu().T).T
+            err = spline_err(got[idx].cpu(), ref)
+    assert launches() == 1
+    assert bool(torch.isfinite(got).all())
+    assert err <= BAR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case,layout', [('expanded', 'tiled.rows'), ('contiguous', 'tiled.rows'),
+                                         ('strided', 'strided.rows')])
+def test_spline_rows_desi_shapes(cuda_device, case, layout):
+    """Knots per system at the filter's shapes, 57 344 systems of 700 knots:
+    the knots expanded over 7 redshifts (8192, 7, 700), contiguous rows, and
+    knots-first tables (700, 57 344) through ``.T``."""
+    rng = np.random.default_rng(3)
+    nb, nz, n = 8192, 7, 700
+    x = nonuniform_knots(rng, (nb, 1), n).to(cuda_device)
+    launches = spline_launch(layout)
+    if case == 'expanded':
+        x = x.expand(nb, nz, n)
+    else:
+        x = x.expand(nb, nz, n).reshape(nb * nz, n)
+    f = spline_values(x, x.shape[:-1], 3)
+    if case == 'strided':
+        x, f = x.T.contiguous().T, f.T.contiguous().T
+    got = spline.natural_cubic_coeffs_rows(x, f)
+    assert launches() == 1
+    assert got.shape == f.shape and bool(torch.isfinite(got).all())
+    x, f, got = x.reshape(-1, n), f.reshape(-1, n), got.reshape(-1, n)
+    idx = sample(nb * nz, 3)
+    ref = spline.natural_cubic_coeffs_rows(x[idx].cpu(), f[idx].cpu())
+    assert spline_err(got[idx].cpu(), ref) <= BAR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [4, 5, 1024])
+@pytest.mark.parametrize('tiled', [True, False])
+@pytest.mark.parametrize('shared', [True, False])
+def test_spline_nonuniform_knots(cuda_device, n, tiled, shared):
+    """Every system of 300 (the last block ragged) against the CPU, on knots
+    whose cells differ by up to 100x, in both layouts, shared and per system."""
+    rng = np.random.default_rng(n)
+    x = nonuniform_knots(rng, () if shared else (300,), n)
+    f = spline_values(x, (300,), n)
+    xd, fd = x.to(cuda_device), f.to(cuda_device)
+    if not tiled:
+        xd, fd = (xd if shared else xd.T.contiguous().T), fd.T.contiguous().T
+    launches = spline_launch(('tiled.' if tiled else 'strided.') + ('shared' if shared else 'rows'))
+    got = spline.natural_cubic_coeffs_rows(xd, fd)
+    assert launches() == 1
+    assert spline_err(got.cpu(), spline.natural_cubic_coeffs_rows(x, f)) <= BAR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tiled', [True, False])
+@pytest.mark.parametrize('shared', [True, False])
+def test_spline_nan_stays_in_its_system(cuda_device, tiled, shared):
+    rng = np.random.default_rng(4)
+    x = nonuniform_knots(rng, () if shared else (200,), 64)
+    f = spline_values(x, (200,), 4)
+    f[77, 30] = float('nan')
+    xd, fd = x.to(cuda_device), f.to(cuda_device)
+    if not tiled:
+        xd, fd = (xd if shared else xd.T.contiguous().T), fd.T.contiguous().T
+    got = spline.natural_cubic_coeffs_rows(xd, fd).cpu()
+    ref = spline.natural_cubic_coeffs_rows(x, f)
+    assert bool(torch.isnan(got[77, 1:-1]).all()) and bool(torch.isnan(ref[77, 1:-1]).all())
+    keep = torch.arange(200) != 77
+    assert spline_err(got[keep], ref[keep]) <= BAR
+
+
+def knots_and_values(s, x0, f0, f1):
+    """Knots rescaled by s[0] (as the filter's by the sound-horizon ratio)
+    and values that depend on both parameters."""
+    return x0 * s[0], f0 * s[1] + f1 * s[0] ** 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shared', [True, False])
+def test_spline_derivatives_on_cuda(cuda_device, shared):
+    """backward, jvp and torch.func.jacfwd through the kernel (each a solve
+    with a right-hand side given: tangent and adjoint) against the plain
+    version's autograd on the CPU, with knots that depend on a parameter."""
+    rng = np.random.default_rng(5)
+    n, rows = 96, 130
+    x0 = nonuniform_knots(rng, () if shared else (rows,), n)
+    f0, f1 = spline_values(x0, (rows,), 5), spline_values(x0, (rows,), 6)
+    s = torch.tensor([1.03, 0.9], dtype=torch.float64)
+    w = torch.from_numpy(rng.normal(size=(rows, n)))
+    bar = 1e-10   # a derivative sums the solve's round-off over more terms than the forward
+
+    def on(device):
+        return [t.to(device) for t in (x0, f0, f1, w)]
+
+    def solve(s, x0, f0, f1):
+        return spline.natural_cubic_coeffs_rows(*knots_and_values(s, x0, f0, f1))
+
+    results = {}
+    for device in (cuda_device, torch.device('cpu')):
+        x0d, f0d, f1d, wd = on(device)
+        sd = s.to(device).requires_grad_(True)
+        grad, = torch.autograd.grad((solve(sd, x0d, f0d, f1d) * wd).sum(), sd)
+        x, f = knots_and_values(s.to(device), x0d, f0d, f1d)
+        tangents = (x * 0.3, f * -0.2 + 0.1)
+        _, jvp = torch.func.jvp(spline.natural_cubic_coeffs_rows, (x, f), tangents)
+        jac = torch.func.jacfwd(lambda t: solve(t, x0d, f0d, f1d))(s.to(device))
+        results[device.type] = (grad.cpu(), jvp.cpu(), jac.cpu())
+    got, ref = results['cuda'], results['cpu']
+    assert torch.allclose(got[0], ref[0], rtol=bar, atol=0.0)
+    assert spline_err(got[1], ref[1]) <= bar
+    assert spline_err(got[2].movedim(-1, 0), ref[2].movedim(-1, 0)) <= bar
+
+
+@pytest.mark.cuda
+def test_spline_kernel_rejects_and_counts(cuda_device):
+    """A float32 CUDA input and a mismatched device raise; the launches
+    count on CUDA tensors and not on CPU tensors."""
+    x = torch.linspace(0.0, 1.0, 16, dtype=torch.float64)
+    f = torch.sin(x)[None].repeat(3, 1)
+    with pytest.raises(TypeError):
+        spline.natural_cubic_coeffs_rows(x.to(cuda_device), f.to(cuda_device, torch.float32))
+    with pytest.raises(ValueError):
+        spline.natural_cubic_coeffs_rows(x, f.to(cuda_device))
+    launches = counters['spline.launches']
+    spline.natural_cubic_coeffs_rows(x, f)
+    spline.natural_cubic_coeffs(x, f.T)
+    assert counters['spline.launches'] == launches
+    spline.natural_cubic_coeffs_rows(x.to(cuda_device), f.to(cuda_device))
+    spline.natural_cubic_coeffs(x.to(cuda_device), f.T.to(cuda_device))
+    torch.cuda.synchronize()
+    assert counters['spline.launches'] == launches + 2
