@@ -17,11 +17,13 @@ the metrics; then
 
 A run: set-up (the program's import, the entry, the pool on the card, two
 warm-up calls), a closed loop for ``seconds`` (one caller, each call ending
-in a synchronize), with ``trace`` a profiled run of calls and the layers'
-calls, then the reference on the sampled answers, and one JSON line.
+in a synchronize), with ``trace`` calls of the same entry and pool
+profiled in one session (:func:`profile`) and the layers' calls, then the
+reference on the sampled answers, and one JSON line.
 """
 
 import argparse
+import copy
 import gc
 import importlib
 import json
@@ -31,10 +33,10 @@ import time
 
 import numpy as np
 
-from . import compare, guard, tracing, traffic
+from . import compare, guard, layers, tracing, traffic
 
 BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
-PROFILED_CALLS = 20
+PROFILED_CALLS, PROFILED_SECONDS = 20, 10.0      # a traced run profiles at most 20 calls, as many as fit 10 s
 
 
 def load_json(path):
@@ -156,6 +158,36 @@ def closed_loop(entry, pool_dev, plan, card, seconds=None, calls=None):
     return walls, now - start
 
 
+def profiled_calls(walls):
+    """The calls a traced run profiles: as many of the window's median call
+    (``walls``, s) as fit PROFILED_SECONDS, at least 1 and at most
+    PROFILED_CALLS."""
+    return max(1, min(PROFILED_CALLS, int(PROFILED_SECONDS // float(np.median(walls)))))
+
+
+def profile(call, ncalls, card):
+    """Profile ``ncalls`` calls of ``call(i)`` in one session: the
+    program's own where it has one (``layers.program_tracing``), its spans
+    on. Returns {'trace': ``tracing.reduce``'s result, 'layers':
+    ``layers.attribute``'s table with the program's counters' change over
+    the calls under 'counters'}, each None where there is nothing to read,
+    and prints the table as the ``layers`` line. A trace that lost records
+    is said so on standard error and gives nothing."""
+    program = layers.program_tracing()
+    before = copy.deepcopy(program.counters) if program is not None else None
+    got = tracing.profile_calls(call, ncalls, card, program.profile() if program is not None else None, layers.PREFIX)
+    if got['lost']:
+        print(f'trace: {got["lost"]} of the {got["launches"]} eager kernel launches in the profiled calls have no '
+              'device record: the trace lost records, and the metrics that read it are left out',
+              file=sys.stderr, flush=True)
+        return {'trace': None, 'layers': None}
+    out = {'trace': tracing.reduce(got['host'], got['device']), 'layers': None}
+    if program is not None:
+        table = dict(layers.attribute(got['spans'], got['device'], got['calls']), linked=got['linked'])
+        out['layers'] = layers.report(table, before, copy.deepcopy(program.counters))
+    return out
+
+
 def sampled(pool, plan, names):
     """The sampled rows' parameters and answers (numpy), in the plan's order."""
     samples = plan.samples()
@@ -199,10 +231,9 @@ def run(cell, seed, seconds, trace, card, t0):
     record = {'cell': cell.name, 'batch': batch, 'calls': len(walls), 'window_s': window_s, 'walls_s': walls,
               'setup_s': setup_s, 'window_peak_bytes': window_peak, 'call_peak_bytes': call_peak,
               'device': card.describe(),
-              'trace': None, 'spans': {}, 'counters': {}}
+              'trace': None, 'layers': None, 'spans': {}, 'counters': {}}
     if trace:
-        record['trace'] = tracing.profile_calls(lambda i: entry.call(pool_dev[i % len(pool_dev)]),
-                                                PROFILED_CALLS, card)
+        record.update(profile(lambda i: entry.call(pool_dev[i % len(pool_dev)]), profiled_calls(walls), card))
         record['spans'] = {name: tracing.span_ms(fn, card) for name, fn in entry.spans(pool_dev[0]).items()}
         record['counters'] = entry.counters(pool_dev[0])
     params, got = sampled(pool, plan, config['params'])
@@ -228,7 +259,7 @@ def run(cell, seed, seconds, trace, card, t0):
     result = {'walls_s': walls, 'correct': compare.correct(checks), 'attempted': len(walls) * batch,
               'failed': int((~finite).sum()),      # sampled cosmologies with an answer that is not a number
               'metrics': metrics, 'device': device}
-    if trace:
+    if record['trace']:
         device.update(busy_s=record['trace']['busy_s'], window_s=record['trace']['window_s'])
         result['breakdown'] = record['trace']['breakdown']
     result['checks'] = {name: {'value': value, 'limit': limit} for name, (value, limit) in checks.items()}

@@ -126,7 +126,7 @@ def test_last_line_has_the_contract_keys(checkout, cell):
     result = last_line(out)
     assert list(result) == KEYS
     assert result['correct'] is True and result['failed'] == 0 and result['attempted'] > 0
-    assert set(result['metrics']) == {'setup_s', 'cosmo_per_s'}
+    assert set(result['metrics']) == {'setup_s', 'cosmo_per_s', 'peak_mem_gb'}    # 0 on the CPU
     assert all(set(m) == {'value', 'unit'} for m in result['metrics'].values())
     assert set(result['device']) == {'platform', 'kind', 'count', 'memory_peak_bytes'}
     checks = err.strip().splitlines()[-len(result['checks']):]
@@ -205,6 +205,16 @@ def test_faults_are_not_correct(checkout, config, fault):
     assert last_line(out)['correct'] is False
 
 
+def ops_of(records):
+    """The device's operations (tracing.Ops) from hand-made (name, start,
+    end[, launch]) tuples, launch None where none was found."""
+    ids = {}
+    index = [ids.setdefault(r[0], len(ids)) for r in records]
+    times = np.array([r[1:3] for r in records], np.float64).reshape(-1, 2)
+    launch = np.array([np.nan if len(r) < 4 or r[3] is None else r[3] for r in records], np.float64)
+    return tracing.Ops(list(ids), np.array(index, np.int64), times[:, 0], times[:, 1], launch)
+
+
 def test_fftlog_bound_at_the_headline_shape():
     peaks = roofline.PEAKS['NVIDIA H100 80GB HBM3']
     ms, kind = roofline.fftlog_bound_ms(40000, 1024, 2048, 1, peaks)
@@ -217,7 +227,7 @@ def test_trace_reduction():
             ('bench.call', 100.0, 200.0), ('cudaDeviceSynchronize', 150.0, 199.0)]
     device = [('kern_a', 20.0, 40.0), ('kern_b', 35.0, 50.0), ('Memcpy HtoD', 120.0, 130.0),
               ('kern_a', 160.0, 170.0), ('bench.call', 0.0, 200.0)]
-    trace = tracing.reduce(host, device)
+    trace = tracing.reduce(host, ops_of(device))
     assert trace['calls'] == 2 and trace['launches'] == 3
     assert trace['window_s'] == pytest.approx(200e-6) and trace['busy_s'] == pytest.approx(50e-6)
     ops = dict(trace['breakdown']['device_ops'])
@@ -228,6 +238,121 @@ def test_trace_reduction():
     assert idle['cudaDeviceSynchronize'] == pytest.approx(30e-6)     # 170-200
     assert sum(idle.values()) == pytest.approx(150e-6)
 
+
+
+class Record:
+    """A profiler record as ``kineto_results.events()`` gives it, made by hand."""
+
+    BASE = 1_790_000_000_000_000_000            # ns, as the profiler's clock reads
+
+    def __init__(self, name, start_us, end_us, corr=0, link=0, thread=1, device=False, annotation=False):
+        import torch
+        self._name, self._corr, self._link, self._thread, self._annotation = name, corr, link, thread, annotation
+        self._start, self._end = self.BASE + int(start_us * 1000), self.BASE + int(end_us * 1000)
+        self._type = torch.autograd.DeviceType.CUDA if device else torch.autograd.DeviceType.CPU
+
+    def name(self):
+        return self._name
+
+    def device_type(self):
+        return self._type
+
+    def start_ns(self):
+        return self._start
+
+    def end_ns(self):
+        return self._end
+
+    def correlation_id(self):
+        return self._corr
+
+    def linked_correlation_id(self):
+        return self._link
+
+    def start_thread_id(self):
+        return self._thread
+
+    def is_user_annotation(self):
+        return self._annotation
+
+    def is_hidden_event(self):
+        return False
+
+
+HOST = [('bench.call', 0.0, 100.0), ('aten::mul', 10.0, 30.0), ('cudaLaunchKernel', 12.0, 14.0),
+        ('cudaGraphLaunch', 52.0, 53.0), ('bench.call', 100.0, 200.0), ('cudaDeviceSynchronize', 150.0, 199.0)]
+DEVICE = [('kern_a', 20.0, 40.0), ('kern_b', 35.0, 50.0), ('kern_g', 54.0, 56.0), ('Memcpy HtoD', 120.0, 130.0),
+          ('kern_a', 160.0, 170.0)]
+
+
+def session_records(lose=False):
+    """HOST and DEVICE as a session's records, with what the one pass has
+    to leave out: the device's copy of a call, a host operation on another
+    thread, one that torch.profiler's event list drops, and a span of the
+    program (which labels no idle gap), and a launch into a stream capture,
+    which runs nothing. ``lose`` drops kern_b's record."""
+    records = [Record('bench.call', 0.0, 100.0, corr=1), Record('aten::mul', 10.0, 30.0, corr=5),
+               Record('cudaLaunchKernel', 12.0, 14.0, corr=101, link=5, thread=9999),    # on its op's thread
+               Record('cudaLaunchKernel', 31.0, 32.0, corr=102, link=1),
+               Record('cudaGraphLaunch', 52.0, 53.0, corr=108),            # outside any op: no link
+               Record('kern_g', 54.0, 56.0, corr=108, device=True),
+               Record('bench.call', 100.0, 200.0, corr=2), Record('cudaMemcpyAsync', 110.0, 111.0, corr=103, link=2),
+               Record('cudaLaunchKernel', 140.0, 141.0, corr=104, link=2),
+               Record('cudaStreamGetCaptureInfo_v2', 142.0, 142.5, corr=106, link=2),       # a capture starts:
+               Record('cudaLaunchKernel', 143.0, 144.0, corr=107, link=2),                  # launched into it
+               Record('cudaDeviceSynchronize', 150.0, 199.0, corr=105, link=2),
+               Record('aten::add', 60.0, 90.0, corr=6, thread=2), Record('aten::is_leaf', 55.0, 95.0, corr=7),
+               Record('cosmoprimo.layer', 5.0, 95.0, corr=8),
+               Record('bench.call', 0.0, 200.0, corr=1, device=True, annotation=True),
+               Record('kern_a', 20.0, 40.0, corr=101, link=5, device=True),
+               Record('Memcpy HtoD', 120.0, 130.0, corr=103, link=2, device=True),
+               Record('kern_a', 160.0, 170.0, corr=104, link=2, device=True)]
+    if not lose:
+        records.append(Record('kern_b', 35.0, 50.0, corr=102, link=1, device=True))
+    return records
+
+
+def test_one_pass_read_matches_the_reduction():
+    """The one pass over a session's records gives the reduction the same
+    host intervals and device operations as made by hand: the same busy
+    time, launches and breakdown; and the program's span to the layers."""
+    got = tracing.read(session_records(), 'cosmoprimo.')
+    want = tracing.reduce(HOST, ops_of(DEVICE))
+    trace = tracing.reduce(got['host'], got['device'])
+    assert trace['calls'] == want['calls'] == 2 and trace['launches'] == want['launches'] == 4
+    assert trace['window_s'] == pytest.approx(want['window_s']) and trace['busy_s'] == pytest.approx(want['busy_s'])
+    for key in ('device_ops', 'idle_gaps'):
+        assert [name for name, _ in trace['breakdown'][key]] == [name for name, _ in want['breakdown'][key]]
+        assert [s for _, s in trace['breakdown'][key]] == pytest.approx([s for _, s in want['breakdown'][key]])
+    assert got['spans'] == [('cosmoprimo.layer', 5.0, 95.0)] and got['calls'] == [(0.0, 100.0), (100.0, 200.0)]
+    assert got['linked'] == {'host': 4, 'runtime': 1, 'none': 0}
+    assert got['launches'] == 4 and got['lost'] == 0          # eager launches: the graph's is not checked
+
+
+def test_a_trace_that_lost_records_says_so():
+    got = tracing.read(session_records(lose=True), 'cosmoprimo.')
+    assert got['launches'] == 4 and got['lost'] == 1
+
+
+@pytest.mark.parametrize('call_s, calls', [(0.035, 20), (0.23, 20), (0.5, 20), (0.6, 16), (4.0, 2), (18.3, 1)])
+def test_profiled_calls_follow_the_call_wall(call_s, calls):
+    """A traced run profiles as many calls as fit PROFILED_SECONDS of the
+    window's median call, at most 20: both cells' calls (eh98 ~35 ms, DESI
+    ~230 ms) give 20, an 18 s call of the Boltzmann solver gives 1."""
+    from benchmark import harness
+    assert harness.profiled_calls([call_s * 0.9, call_s, call_s * 5.0]) == calls
+
+
+def test_card_wide_metrics_for_an_added_cell(checkout, monkeypatch):
+    """A cell added as files and a workload entry reports the card-wide
+    metrics with no edit to an existing entry: peak_mem_gb, and traced
+    device_idle_pct, launches_per_call and call_peak_gb."""
+    from benchmark import harness
+    monkeypatch.setattr(harness, 'BENCH_DIR', str(checkout / 'benchmark'))
+    for name in ('eh98_pk_xi.tiny', 'desi_bao_template.tiny'):
+        cell = harness.Cell(name)
+        assert {'setup_s', 'cosmo_per_s', 'peak_mem_gb'} <= {m['name'] for m in cell.metrics(False)}
+        assert {'device_idle_pct', 'launches_per_call', 'call_peak_gb'} <= {m['name'] for m in cell.metrics(True)}
 
 @pytest.mark.cuda
 def test_a_cell_runs_on_the_card():

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from benchmark import harness, layers, tracing
-from benchmark.tests.test_bench_harness import checkout, last_line, run  # noqa: F401  (the fixture)
+from benchmark.tests.test_bench_harness import checkout, last_line, ops_of, run  # noqa: F401  (the fixture)
 
 NEW = ('params_in_call_ms', 'background_in_call_ms', 'linear_pk_in_call_ms', 'bao_filter_in_call_ms',
        'bao_prepare_idle_ms', 'spline_build_in_call_ms', 'to_xi_in_call_ms', 'fftlog_kernel_roofline',
@@ -26,7 +26,7 @@ def test_attribute_splits_the_window():
               ('Memcpy DtoH', 80.0, 90.0, 75.0),         # launched outside the spans
               ('kern_z', 150.0, 160.0, None),            # no launch found: its start, in a
               ('kern_w', 190.0, 210.0, 185.0)]           # clipped to the window's end
-    out = layers.attribute(spans, device, calls)
+    out = layers.attribute(spans, ops_of(device), calls)
     assert out['calls'] == 2 and out['wall_ms'] == pytest.approx(0.1)
     rows = {name: {k: v * 2 for k, v in row.items()} for name, row in out['rows'].items()}   # totals
     a, b, outside = rows['cosmoprimo.a'], rows['cosmoprimo.b'], rows[layers.OUTSIDE]
@@ -45,9 +45,10 @@ def test_attribute_splits_the_window():
 
 
 def test_the_harness_trace_takes_no_span(monkeypatch):
-    """The harness's own profiler (tracing.profile_calls) leaves the
-    program's spans off: its reduction sees the host's operations as on a
-    program without spans."""
+    """The one profiled session (harness.profile) has the program's
+    spans on, and its reduction (device time, launches, the breakdown) sees
+    the host's operations without them, as on a program without spans;
+    the layers' table sees them."""
     from cosmoprimo_tpu_torch import make_pk_to_xi_pipeline_batched
     seen = []
 
@@ -59,10 +60,12 @@ def test_the_harness_trace_takes_no_span(monkeypatch):
     monkeypatch.setattr(tracing, 'reduce', spy)
     fn, _, _ = make_pk_to_xi_pipeline_batched(nk=128)
     args = [torch.full((3,), value, dtype=torch.float64) for value in (0.12, 0.0224, 0.675, 0.965, 3.04)]
-    trace = tracing.profile_calls(lambda i: fn(*args), 2, harness.Host())
+    out = harness.profile(lambda i: fn(*args), 2, harness.Host())
+    trace = out['trace']
     assert trace['calls'] == 2 and any(name.startswith('aten::') for name, _, _ in seen)
     assert not [name for name, _, _ in seen if name.startswith(layers.PREFIX)]
     assert not [name for name, _ in trace['breakdown']['idle_gaps'] if name.startswith(layers.PREFIX)]
+    assert out['layers']['calls'] == 2 and 'cosmoprimo.pipeline.pk_to_xi' in out['layers']['rows']
 
 
 @pytest.mark.parametrize('name', NEW)
@@ -71,7 +74,6 @@ def test_a_metric_with_nothing_to_read_is_none(name, monkeypatch):
     device = {'platform': 'gpu', 'kind': 'NVIDIA H100 80GB HBM3', 'count': 1}
     if name != 'kernel_build_s':
         assert metric.read({'trace': None, 'device': device}) is None                 # an untraced run
-        monkeypatch.setattr(layers, '_tables', {})
         empty = {'calls': 20, 'wall_ms': 1.0, 'rows': {layers.OUTSIDE: dict.fromkeys(layers.FIELDS, 0.5)},
                  'counters': {'fftlog.shapes': {}}}
         monkeypatch.setattr(layers, 'table', lambda record: empty)
@@ -81,8 +83,28 @@ def test_a_metric_with_nothing_to_read_is_none(name, monkeypatch):
     assert metric.read({'trace': {}, 'device': device}) is None                       # a program without spans
 
 
+COUNTED = '''
+import atexit, json
+from benchmark import traffic
+made = {{'entry': 0, 'pool': 0}}
+entries = harness.Cell.module('entries', {config!r})
+build, draw_pool = entries.build, traffic.draw_pool
+def counted_build(*args):
+    made['entry'] += 1
+    return build(*args)
+def counted_pool(*args):
+    made['pool'] += 1
+    return draw_pool(*args)
+entries.build, traffic.draw_pool = counted_build, counted_pool
+atexit.register(lambda: print('made: ' + json.dumps(made), file=sys.stderr))
+'''
+
+
 @pytest.mark.parametrize('config', ['eh98_pk_xi', 'desi_bao_template'])
 def test_a_traced_tiny_cell_reads_the_layers(checkout, tmp_path, config):  # noqa: F811
+    """One traced run of a tiny cell: the entry built and the pool drawn
+    once, as many calls profiled as the window's median call gives, the
+    layers read from those calls."""
     root = tmp_path / 'layers'
     shutil.copytree(checkout, root)
     spec = json.loads((root / 'BENCHMARK.json').read_text())
@@ -91,8 +113,11 @@ def test_a_traced_tiny_cell_reads_the_layers(checkout, tmp_path, config):  # noq
         if metric['name'] in SPAN_METRICS and f'{config}.b' in ' '.join(metric['workloads']):
             metric['workloads'].append(cell)
     (root / 'BENCHMARK.json').write_text(json.dumps(spec))
-    rc, out, err = run(root, ['--workload', cell, '--seed', '2147483999', '--seconds', '0.3', '--trace', '1'])
+    rc, out, err = run(root, ['--workload', cell, '--seed', '2147483999', '--seconds', '0.3', '--trace', '1'],
+                       patch=COUNTED.format(config=config))
     assert rc == 0, err
+    made = next(line for line in err.splitlines() if line.startswith('made: '))
+    assert json.loads(made[len('made: '):]) == {'entry': 1, 'pool': 1}
     result = last_line(out)
     metrics = result['metrics']
     for name in ('params_in_call_ms', 'background_in_call_ms', 'linear_pk_in_call_ms', 'spline_build_in_call_ms'):
@@ -103,7 +128,9 @@ def test_a_traced_tiny_cell_reads_the_layers(checkout, tmp_path, config):  # noq
     assert 'fftlog_kernel_roofline' not in metrics          # no kernel on the CPU
     line = next(line for line in err.splitlines() if line.startswith('layers: '))
     table = json.loads(line[len('layers: '):])
-    assert table['calls'] == harness.PROFILED_CALLS
+    walls = next(line for line in err.splitlines() if line.startswith('call ms (min, q1, median'))
+    median_s = float(walls.split(': ')[1].split(', ')[2]) / 1e3
+    assert table['calls'] == harness.profiled_calls([median_s]) > 1
     total = sum(row['device_self_ms'] + row['idle_self_ms'] for row in table['rows'].values())
     assert total == pytest.approx(table['wall_ms'], rel=1e-9)
     assert table['counters']['calls']['fftlog.launches'] == 0       # the CPU's engine calls no core
