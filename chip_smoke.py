@@ -227,10 +227,14 @@ the spline kernel's launches in the same runs (phase 11's with its P(k)
 interpolator) into its entry there, each run's count printed; a run that
 builds splines on the card fails if it launched no spline kernel (all of
 them but phases 18, 24, 25 and 27's quickstart, whose counts are printed
-only). The last line is {"ok": true, "device": {...}}. Imports nothing of
-JAX.
+only). Phases 10-13 and 18-21 each print how many of the streaming
+phase's lanes (cosmology, k) of their native solver runs, on the card and
+on the CPU, had the massive-neutrino fluid pinned on some step because the
+step left its waves unresolved (perturbations._ncdm_unresolved). The last
+line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
+import contextlib
 import json
 import re
 import subprocess
@@ -483,6 +487,40 @@ def check(ok, message):
 # the spline kernel's launches in each main-path run, by path: summed into the
 # kernels line's spline_solve entry
 SPLINE_LAUNCHES = {}
+
+
+@contextlib.contextmanager
+def ncdm_pins(label):
+    """Count, over the block, the streaming-phase lanes of the native
+    solver's runs whose massive-neutrino fluid was pinned on some step
+    (perturbations._ncdm_unresolved), by device, and print them. Each run's
+    flags are or-ed in place into a tensor of its lanes, made at the run's
+    first (eager) call, so that replays of a captured loop add theirs."""
+    from cosmoprimo_tpu_torch.boltzmann import perturbations as P
+    unresolved, runs = P._ncdm_unresolved, {}
+
+    def counted(c, lanes, steps):
+        flag = unresolved(c, lanes, steps)
+        if steps is not None:
+            if id(lanes) not in runs:
+                runs[id(lanes)] = (lanes, torch.zeros(flag.shape[-2:], dtype=torch.bool, device=flag.device))
+            runs[id(lanes)][1].logical_or_(flag.reshape((-1,) + flag.shape[-2:]).any(0))
+        return flag
+
+    P._ncdm_unresolved = counted
+    try:
+        yield
+    finally:
+        P._ncdm_unresolved = unresolved
+    by_device = {}
+    for _, pinned in runs.values():
+        n = by_device.setdefault(pinned.device.type, [0, 0, 0])
+        n[0] += int(pinned.sum())
+        n[1] += pinned.numel()
+        n[2] += 1
+    print(f'phase {label}: massive-neutrino fluid pinned in ' + ('; '.join(
+        f'{n[0]} of {n[1]} streaming-phase lanes ({n[2]} solver run{"s" if n[2] > 1 else ""}) on the {dev}' for dev, n in by_device.items())
+        or 'no streaming-phase run'), flush=True)
 
 
 def main_run_start():
@@ -2689,7 +2727,8 @@ def main():
     spline_line = spline_solve(card)
 
     # 10-13. the native Boltzmann path
-    launches += native_path(fftlog_kernel, rng, card)
+    with ncdm_pins('10-13'):
+        launches += native_path(fftlog_kernel, rng, card)
 
     # 14-17. the analytic engines, the batched solve and the mock redshifts
     launches += analytic_engines(fftlog_kernel, rng, card)
@@ -2697,13 +2736,17 @@ def main():
     mock_redshifts(card)
 
     # 18-20. the native CMB spectra, the Perturbations table, the emitting loops
-    launches += cmb_spectra(fftlog_kernel, rng, card)
-    perturbation_table(card)
-    emitting_graphs(rng, card)
+    with ncdm_pins('18'):
+        launches += cmb_spectra(fftlog_kernel, rng, card)
+    with ncdm_pins('19'):
+        perturbation_table(card)
+    with ncdm_pins('20'):
+        emitting_graphs(rng, card)
 
     # 21-22. the emulator serving path
     t0 = time.perf_counter()
-    launches += emulator_serving(fftlog_kernel, rng, card)
+    with ncdm_pins('21'):
+        launches += emulator_serving(fftlog_kernel, rng, card)
     converted_nets(rng, card)
     print(f'phases 21-22: {time.perf_counter() - t0:.1f} s', flush=True)
 

@@ -8,9 +8,13 @@ slice over the state axis. Each lane has its own fixed-length time grid (two
 RK4 phases of static length), the stiff regimes are algebraic projections
 (tight coupling, radiation streaming, Poisson pinning) blended per lane with
 ``torch.where``, and the outputs at the requested redshifts are harvested
-inside the loops by per-step linear blending, as in the JAX package. The
-two phases run through :func:`~cosmoprimo_tpu_torch.ops.step_loop.step_loop`
-(CUDA graphs on the card); the same loop can emit rows of every step's end
+inside the loops by per-step linear blending, as in the JAX package. In the
+streaming phase the massive-neutrino fluid is pinned to its quasi-static
+values on the steps that leave its waves unresolved (:func:`_ncdm_unresolved`:
+a light neutrino at high k), where the JAX package's integration grows
+without bound. The two phases run through
+:func:`~cosmoprimo_tpu_torch.ops.step_loop.step_loop` (CUDA graphs on the
+card); the same loop can emit rows of every step's end
 state instead (the line-of-sight source taps of the CMB spectra,
 :func:`compute_los_sources`, and the series of
 :func:`compute_perturbation_series`).
@@ -28,7 +32,7 @@ synchronous gauge, delta^syn_i = delta^N_i + 3 aH (1 + w_i) theta_c / k^2.
 import numpy as np
 import torch
 
-from .. import constants
+from .. import constants, tracing
 from ..ops import cumsum_blocked, gauss_laguerre_nodes, interp, linspace_rows
 from ..ops.step_loop import step_loop
 from . import thermodynamics as _thermo
@@ -317,10 +321,13 @@ class Lanes(object):
         self.eta_rsa = RSA_KETA / k
 
 
-def _coefs_a(c, lanes, eta):
+def _coefs_a(c, lanes, eta, steps=None):
     """The phase-A coefficients at the fetched points ``c`` and ``eta``
     (..., B, nk): the switches and every factor of :func:`deriv_full` and
-    the projections that does not depend on the state. Adds them to ``c``."""
+    the projections that does not depend on the state. Adds them to ``c``.
+    ``steps`` (the RK4 loop's, see :func:`_coefs_b`) is not read: the drag
+    map's factors, which depend on the step, are made per step
+    (:func:`_drag_coefs`)."""
     k, k2, K = lanes.k, lanes.k2, c['K']
     Hc, kp, cb2 = c['Hc'], c['kp'], c['cb2']
     fg, fur, fc, fb, fnc, fde, w_de = c['fg'], c['fur'], c['fc'], c['fb'], c['fnc'], c['fde'], c['w_de']
@@ -653,9 +660,13 @@ def _project_a(y_start, y_end, lanes, drag, cm, c1):
     return _ur_rsa_project(y_end, lanes, c1, parts)
 
 
-def _coefs_b(c, lanes, eta):
+def _coefs_b(c, lanes, eta, steps=None):
     """The streaming-phase coefficients at the fetched points ``c`` and
-    ``eta`` (..., B, nk), as :func:`_coefs_a`."""
+    ``eta`` (..., B, nk), as :func:`_coefs_a`. ``steps`` (..., B, nk): the
+    length of the RK4 step that each point lies on (:func:`_step_points`),
+    which decides where the massive-neutrino fluid is pinned
+    (:func:`_ncdm_unresolved`); None, for points off a step grid, pins it
+    nowhere."""
     k, k2, s2 = lanes.k, lanes.k2, lanes.s2
     Hc, kp, w, fnc, w_de = c['Hc'], c['kp'], c['w_nc'], c['fnc'], c['w_de']
     G2k2 = (Hc ** 2 + c['K']) / k2
@@ -675,6 +686,7 @@ def _coefs_b(c, lanes, eta):
         # cs2 k^2 delta/(1+w) + k^2 psi = 0, where cs k eta > 45
         de_qs=eta * torch.sqrt(torch.clamp(cs2, min=0.0)) > lanes.eta_rsa,
         qa=-opw / cs2_qs, qb=3.0 * Hc * (cs2_qs - w_de) / cs2_qs)
+    c['nc_qs'] = _ncdm_unresolved(c, lanes, steps)
     return c
 
 
@@ -703,7 +715,8 @@ def deriv_rsa(yB, lanes, c):
     dsn = c['n5'] * sn + c['n6'] * tn
     ddde = c['e1'] * (tde - p3) + c['e2'] * dde + c['e3'] * tde
     dtde = c['f1'] * tde + c['f2'] * dde + k2psi
-    de_qs = c['de_qs']
+    de_qs, nc_qs = c['de_qs'], c['nc_qs']
+    ddn, dtn, dsn = (torch.where(nc_qs, 0.0, v) for v in (ddn, dtn, dsn))
     return torch.stack([phip, p3 - tc, k2psi - Hc * tc, p3 - tb,
                         -Hc * tb + c['cb2k2'] * db + k2psi + c['kpR'] * (p3 - tb), ddn, dtn, dsn,
                         torch.where(de_qs, 0.0, ddde), torch.where(de_qs, 0.0, dtde)])
@@ -711,12 +724,41 @@ def deriv_rsa(yB, lanes, c):
 
 def _project_b(y_start, y_end, lanes, drag, cm, c1):
     """Post-step pin of the streaming-phase dark-energy fluid to its
-    quasi-static values sub-sound-horizon."""
+    quasi-static values sub-sound-horizon, and of the massive-neutrino fluid
+    where the step leaves its waves unresolved (:func:`_ncdm_unresolved`):
+    theta' = 0 and delta' = 0 with sigma = 0, so delta = -k^2 psi / n4 and
+    theta = 3 phi' + n2 delta / (1 + w)."""
     psi, phip = _rsa_metric(y_end, c1)
     de_qs = c1['de_qs']
     y_end[8] = torch.where(de_qs, c1['qa'] * psi, y_end[8])
     y_end[9] = torch.where(de_qs, 3.0 * phip + c1['qb'] * psi, y_end[9])
+    nc_qs = c1['nc_qs']
+    dn = -lanes.k2 * psi / torch.where(nc_qs, c1['n4'], 1.0)
+    y_end[5] = torch.where(nc_qs, dn, y_end[5])
+    y_end[6] = torch.where(nc_qs, 3.0 * phip - c1['n2'] * dn / c1['n1'], y_end[6])
+    y_end[7] = torch.where(nc_qs, 0.0, y_end[7])
     return y_end
+
+
+# RK4's stability bound on the imaginary axis: a step that turns an
+# undamped wave by more than 2 sqrt(2) radians amplifies it
+NCDM_OMEGA_D_MAX = 2.0 * np.sqrt(2.0)
+
+
+def _ncdm_unresolved(c, lanes, steps):
+    """Where the step ``steps`` (..., B, nk) turns the massive-neutrino
+    fluid's fastest wave by more than NCDM_OMEGA_D_MAX, at the coefficients
+    ``c`` of the point on it (:func:`_coefs_b`): its sound and shear waves,
+    omega^2 = cg2 k^2 (1 + s_2 16 / (15 (1 + w))), from delta' = n1 theta,
+    theta' = n4 delta - k^2 s_2 sigma, sigma' = n6 theta. A light neutrino
+    stays relativistic late, and the static step budget cannot resolve its
+    waves at high k (at 1280 steps, m < ~0.012 eV and k > ~0.3 h/Mpc): RK4
+    there grows without bound. A lane whose steps all stay within the bound
+    is never pinned. None for ``steps`` flags no point."""
+    if steps is None:
+        return torch.zeros_like(lanes.k, dtype=torch.bool)
+    omega2 = -c['n1'] * c['n4'] + lanes.k2 * lanes.s2 * c['n6']
+    return torch.sqrt(torch.clamp(omega2, min=0.0)) * steps > NCDM_OMEGA_D_MAX
 
 
 def _ncdm_handoff(yA, eta_Aend, tabs, lanes):
@@ -738,7 +780,17 @@ def _at(c, i):
     return {name: _at(v, i) if isinstance(v, dict) else v[i] if v.dim() > 2 else v for name, v in c.items()}
 
 
-def _rk4_loop(deriv, coefs, project, y0, eta_grid, tabs, lanes, graphs, harvest=None, emit=None, rates=None):
+def _step_points(e):
+    """The points of the steps of the grid rows ``e`` (n + 1, B, nk) at
+    which the RK4 loop takes its coefficients, e_0, m_0, e_1, m_1, ..., e_n
+    (m_i the midpoints), and the length of the step each lies on (e_0 on
+    the first)."""
+    d = e[1:] - e[:-1]
+    pts = torch.cat([torch.stack([e[:-1], 0.5 * (e[:-1] + e[1:])], dim=1).flatten(0, 1), e[-1:]])
+    return pts, torch.cat([d[:1], d.repeat_interleave(2, dim=0)])
+
+
+def _rk4_loop(deriv, coefs, project, y0, eta_grid, tabs, lanes, graphs, name, harvest=None, emit=None, rates=None):
     """Fixed-step RK4 over the per-lane grids ``eta_grid`` (N + 1, B, nk),
     then ``project``. The coefficients ``coefs`` at the steps' ends and
     midpoints are made once per chunk of steps, vectorized, and with
@@ -752,7 +804,8 @@ def _rk4_loop(deriv, coefs, project, y0, eta_grid, tabs, lanes, graphs, harvest=
     (y1, ydot1, lanes, c1) -> (n_emit, B, nk) of each step's end state, its
     derivative and the coefficients there (the line-of-sight source taps).
     Returns the final state, the harvest (n_z, len(rows), B, nk) or None and
-    the emitted rows (N, n_emit, B, nk) or None."""
+    the emitted rows (N, n_emit, B, nk) or None. ``name`` keys the loop's
+    counts (:func:`~cosmoprimo_tpu_torch.ops.step_loop.step_loop`)."""
     fetch_lanes = lanes if isinstance(lanes, Lanes) else None     # the massive neutrinos' factors
     if harvest is not None:
         harvest_eta, rows = harvest
@@ -761,9 +814,8 @@ def _rk4_loop(deriv, coefs, project, y0, eta_grid, tabs, lanes, graphs, harvest=
 
     def prepare(cols):
         e = cols[0]
-        em = 0.5 * (e[:-1] + e[1:])
-        pts = torch.cat([torch.stack([e[:-1], em], dim=1).flatten(0, 1), e[-1:]])   # e_0, m_0, e_1, ...
-        c = coefs(_fetch(tabs, pts, fetch_lanes, rates=rates is not None), lanes, pts)
+        pts, steps = _step_points(e)
+        c = coefs(_fetch(tabs, pts, fetch_lanes, rates=rates is not None), lanes, pts, steps)
         if rates is not None:
             c['rate'] = rates(c, lanes)
         e0, e1 = e[:-1], e[1:]
@@ -796,11 +848,11 @@ def _rk4_loop(deriv, coefs, project, y0, eta_grid, tabs, lanes, graphs, harvest=
             new += (carry[2] + torch.where(hit, ys + w * (y1.index_select(0, rows) - ys), 0.0),)
         return new, (() if emit is None else (emit(y1, ydot1, lanes, c1),))
 
-    start = eta_grid[:1]
-    carry = (y0, deriv(y0, lanes, _at(coefs(_fetch(tabs, start, fetch_lanes), lanes, start), 0)))
+    start, steps = (p[:1] for p in _step_points(eta_grid[:2]))
+    carry = (y0, deriv(y0, lanes, _at(coefs(_fetch(tabs, start, fetch_lanes), lanes, start, steps), 0)))
     if harvest is not None:
         carry += (y0.new_zeros((h.shape[0], rows.numel()) + y0.shape[1:]),)
-    carry, emitted = step_loop(step, carry, (eta_grid,), prepare=prepare, graphs=graphs)
+    carry, emitted = step_loop(step, carry, (eta_grid,), name, prepare=prepare, graphs=graphs)
     return carry[0], (carry[2] if harvest is not None else None), (emitted[0] if emit is not None else None)
 
 
@@ -928,9 +980,9 @@ def _emitting_run(params, thermo, k, n_steps, graphs, emitters, rates=(None, Non
     run = _setup(params, thermo, k, None, n_steps)
     tabs, lanes = run['tabs'], run['lanes']
     yA, _, srcA = _rk4_loop(deriv_full, _coefs_a, _project_a, run['y0'], run['eta_A'], tabs, lanes, graphs,
-                            emit=emitters[0], rates=rates[0])
+                            'sources_a', emit=emitters[0], rates=rates[0])
     yB0 = _ncdm_handoff(yA, run['eta_A'][-1], tabs, lanes)
-    _, _, srcB = _rk4_loop(deriv_rsa, _coefs_b, _project_b, yB0, run['eta_B'], tabs, lanes, graphs,
+    _, _, srcB = _rk4_loop(deriv_rsa, _coefs_b, _project_b, yB0, run['eta_B'], tabs, lanes, graphs, 'sources_b',
                            emit=emitters[1], rates=rates[1])
     return run, srcA, srcB
 
@@ -1012,17 +1064,21 @@ def _setup(params, thermo, k, z_outputs, n_steps):
 
 
 def _phase_a(run, graphs):
-    """The full-hierarchy phase: its end state and harvest."""
-    yA, outA, _ = _rk4_loop(deriv_full, _coefs_a, _project_a, run['y0'], run['eta_A'], run['tabs'], run['lanes'],
-                            graphs, harvest=(run['eta_t'], _rows_a(run['lanes'].ns)))
+    """The full-hierarchy phase: its end state and harvest, in the span
+    ``cosmoprimo.perturbations.phase_a`` (closed on the device)."""
+    with tracing.span('cosmoprimo.perturbations.phase_a', sync=True):
+        yA, outA, _ = _rk4_loop(deriv_full, _coefs_a, _project_a, run['y0'], run['eta_A'], run['tabs'],
+                                run['lanes'], graphs, 'phase_a', harvest=(run['eta_t'], _rows_a(run['lanes'].ns)))
     return yA, outA
 
 
 def _phase_b(run, yA, graphs):
-    """The streaming phase from the end of phase A: its harvest."""
-    yB0 = _ncdm_handoff(yA, run['eta_A'][-1], run['tabs'], run['lanes'])
-    return _rk4_loop(deriv_rsa, _coefs_b, _project_b, yB0, run['eta_B'], run['tabs'], run['lanes'], graphs,
-                     harvest=(run['eta_t'], list(range(8))))[1]
+    """The streaming phase from the end of phase A: its harvest, in the span
+    ``cosmoprimo.perturbations.phase_b`` (closed on the device)."""
+    with tracing.span('cosmoprimo.perturbations.phase_b', sync=True):
+        yB0 = _ncdm_handoff(yA, run['eta_A'][-1], run['tabs'], run['lanes'])
+        return _rk4_loop(deriv_rsa, _coefs_b, _project_b, yB0, run['eta_B'], run['tabs'], run['lanes'], graphs,
+                         'phase_b', harvest=(run['eta_t'], list(range(8))))[1]
 
 
 def _assemble(run, outA, outB):
@@ -1071,10 +1127,14 @@ def integrate_perturbations(params, thermo, k, z_outputs, n_steps=None, graphs=T
     each (B, n_z, nk), normalized to comoving curvature R = 1.
     ``n_steps``: the static (n_steps_a, n_steps_b, m_tab) budget, see
     :func:`steps_for_kmax`; None gives the module defaults. ``graphs``:
-    replay the RK4 loops from CUDA graphs on the card."""
-    run = _setup(params, thermo, k, z_outputs, n_steps)
-    yA, outA = _phase_a(run, graphs)
-    return _assemble(run, outA, _phase_b(run, yA, graphs))
+    replay the RK4 loops from CUDA graphs on the card. The call is the span
+    ``cosmoprimo.perturbations``, with ``.setup`` (the tables, the grids,
+    the initial state), ``.phase_a`` and ``.phase_b`` inside it."""
+    with tracing.span('cosmoprimo.perturbations'):
+        with tracing.span('cosmoprimo.perturbations.setup'):
+            run = _setup(params, thermo, k, z_outputs, n_steps)
+        yA, outA = _phase_a(run, graphs)
+        return _assemble(run, outA, _phase_b(run, yA, graphs))
 
 
 def linear_pk(params, thermo, k_hMpc, z_outputs, n_steps=None, graphs=True):

@@ -95,10 +95,11 @@ def _psi_pol(y):
             - 3.0 * FP[0] / 5.0 + 6.0 * FP[2] / 7.0 - 3.0 * FP[4] / 70.0)
 
 
-def _coefs_t(c, lanes, eta):
+def _coefs_t(c, lanes, eta, steps=None):
     """The tensor loop's coefficients at the fetched points ``c`` and
     ``eta`` (..., B, nk): the tight-coupling switch, the towers' closure
-    factors (2L+1)/(k eta) and the stress factor 6 aH^2."""
+    factors (2L+1)/(k eta) and the stress factor 6 aH^2. ``steps`` (the RK4
+    loop's) is not read."""
     k = lanes.k
     c.update(tca=(c['kp'] > TCA_TRIGGER_AH * c['Hc']) & (c['kp'] > TCA_TRIGGER_K * k),
              S6=6.0 * c['Hc'] ** 2, fnu=c['fur'] + c['fnc'],    # ncdm massless for the tensor stress
@@ -186,7 +187,7 @@ def compute_tensor_sources(params, thermo, k, z_nodes=None, graphs=True):
     y0 = torch.zeros((N_STATE_T,) + k.shape, dtype=torch.float64, device=k.device)
     y0[_I_H] = 1.0                            # h(0) = 1, h'(0) = 0, the towers 0
     _, _, src_steps = _rk4_loop(deriv_tensor, _coefs_t, _project_t, y0, eta_g, tabs, TensorLanes(k), graphs,
-                                emit=_emit_t)
+                                'tensor', emit=_emit_t)
     tau_h = _tau_nodes(tabs, _tensor_z_nodes() if z_nodes is None else z_nodes)
     src = _onto_tau(tau_h, (eta_g,), (src_steps,))
     c_h = _fetch(tabs, tau_h)

@@ -13,7 +13,10 @@ default scale of 1; its environment knob is not carried). The Newton steps
 take d/dx of the right-hand side in closed form where the JAX package takes
 ``jax.grad`` inside its scan; the closed form holds every
 factor that depends on x and nothing else, so forward-mode AD flows through
-the loop as it does through ``jax.jacfwd``. The scan runs through
+the loop as it does through ``jax.jacfwd``. The scan's first steps (to
+z > 8000, :func:`saha_steps`), where every output is the Saha value or the
+temperature's attractor whatever the step carries, are made at once
+(:func:`_saha_era`, the same values bit for bit); the rest runs through
 :func:`~cosmoprimo_tpu_torch.ops.step_loop.step_loop` (a CUDA graph on the
 card).
 """
@@ -21,11 +24,11 @@ card).
 import numpy as np
 import torch
 
-from .. import constants
+from .. import constants, tracing
 from ..ops.quadrature import cumsum_blocked
 from ..ops.roots import bisect
 from ..ops.spline import interp
-from ..ops.step_loop import step_loop
+from ..ops.step_loop import CHUNK, step_loop
 
 # ---- SI atomic constants (CODATA 2018 / RECFAST values), copied from the
 # JAX package's module
@@ -58,6 +61,9 @@ _MPC = constants.megaparsec_over_m
 N_GRID = 6145
 LNA_GRID = np.linspace(np.log(1e-8), 0.0, N_GRID)
 DLNA = float(LNA_GRID[1] - LNA_GRID[0])
+# the scan's steps to z > SAHA_Z hold the Saha values and the matter
+# temperature's attractor (see _saha_era)
+SAHA_Z = 8000.0
 # static index range with z > 50 (grid ordered early -> today)
 _HIZ_SLICE = slice(0, int(np.sum(LNA_GRID <= np.log(1.0 / 51.0))))
 
@@ -252,6 +258,33 @@ def _recombination_step(f_He, fudge):
     return step
 
 
+def saha_steps():
+    """The scan's first steps that :func:`_saha_era` makes at once: those
+    to the grid points at z > SAHA_Z, in whole chunks of the step loop
+    (3136 of the 6144)."""
+    n = int(np.sum(LNA_GRID[1:] < -np.log1p(SAHA_Z)))
+    return n - n % CHUNK
+
+
+def _saha_era(f_He, cur):
+    """The scan's steps to the grid points ``cur`` (the columns of
+    :func:`compute_thermodynamics`, (n, B) each) where every lane holds the
+    Saha values and the temperature's attractor: HeII Saha-bound (u > 0.99),
+    x_H above the 0.985 handoff and the Compton coupling over 50 Hubble
+    rates. There the step's outputs (x_H, xhe, T_m) take none of its carry,
+    and they are made here at once by the step's own expressions, bit for
+    bit. NaN where a lane is not in that regime, which the static
+    SAHA_Z leaves to cosmologies far outside any fit."""
+    xhe_next = cur[4]
+    xhe_e1 = torch.where(cur[3] >= 0.0, cur[3], xhe_next)
+    x_next = _saha_root(cur[7], xhe_e1)
+    x_e1 = x_next + xhe_e1
+    A1 = cur[8] * x_e1 / (1.0 + f_He + x_e1)
+    T_next = cur[2] * (1.0 - 1.0 / torch.clamp(A1, min=2.0))
+    held = (cur[4] >= 0.0) & (x_next > 0.985) & (A1 > 50.0)
+    return tuple(torch.where(held, v, torch.nan) for v in (x_next, xhe_next, T_next))
+
+
 def _batch(*values):
     """Broadcast per-cosmology values (tensors or floats) to one flat (B,)
     batch; returns the values and the batch shape."""
@@ -271,7 +304,16 @@ def compute_thermodynamics(omega_b, h, T_cmb, efunc_of_z, YHe=None, tau_reio=Non
     shape, or floats. ``efunc_of_z(z)`` maps the (N_GRID,) redshift grid to
     E(z) = H(z)/H0, batch + (N_GRID,). Give ``tau_reio`` or ``z_reio``; with
     neither, tau_reio = 0.06. ``graphs``: replay the recombination scan from
-    a CUDA graph on the card (see :func:`step_loop`)."""
+    a CUDA graph on the card (see :func:`step_loop`). The call is the span
+    ``cosmoprimo.thermodynamics``, which closes on the device
+    (``tracing.span(..., sync=True)``)."""
+    with tracing.span('cosmoprimo.thermodynamics', sync=True):
+        return _compute_thermodynamics(omega_b, h, T_cmb, efunc_of_z, YHe, tau_reio, z_reio, reionization_width,
+                                       N_eff, fudge, graphs)
+
+
+def _compute_thermodynamics(omega_b, h, T_cmb, efunc_of_z, YHe, tau_reio, z_reio, reionization_width, N_eff, fudge,
+                            graphs):
     (omega_b, h, T_cmb, width, N_eff), bshape = _batch(omega_b, h, T_cmb, reionization_width, N_eff)
     device = omega_b.device
     lna = _grid(device)
@@ -308,10 +350,11 @@ def compute_thermodynamics(omega_b, h, T_cmb, efunc_of_z, YHe=None, tau_reio=Non
                8.0 * sigma_thomson * a_radiation * T_gamma ** 4 / (3.0 * m_electron * constants.c * H_s),
                lambda_lya ** 3 / (8.0 * np.pi * H_s) * lambda_2s1s)
     init = (x_H_saha[0], f_He * u_HeII[0], T_gamma[0])
-    _, (x_H_tab, xhe_tab, T_m_tab) = step_loop(_recombination_step(f_He, fudge), init, columns, graphs=graphs)
-    x_H_tab = torch.cat([init[0][None], x_H_tab]).T
-    xhe_tab = torch.cat([init[1][None], xhe_tab]).T
-    T_m_tab = torch.cat([init[2][None], T_m_tab]).T
+    s0 = saha_steps()
+    early = _saha_era(f_He, tuple(col[1:s0 + 1] for col in columns))
+    _, late = step_loop(_recombination_step(f_He, fudge), tuple(t[-1] for t in early),
+                        tuple(col[s0:] for col in columns), 'recombination', graphs=graphs)
+    x_H_tab, xhe_tab, T_m_tab = (torch.cat([i[None], e, t]).T for i, e, t in zip(init, early, late))
 
     # batch first from here: (B, N_GRID)
     f = f_He[:, None]

@@ -15,9 +15,12 @@ buffers.
 """
 
 import math
+import time
 
 import torch
 import torch.autograd.forward_ad as forward_ad
+
+from .. import tracing
 
 CHUNK = 32
 
@@ -30,7 +33,7 @@ def is_dual(tensor):
             or forward_ad.unpack_dual(tensor).tangent is not None)
 
 
-def step_loop(step, carry, columns, prepare=None, graphs=True):
+def step_loop(step, carry, columns, name, prepare=None, graphs=True):
     """Run the n steps of the grid ``columns`` (tensors with n + 1 rows on
     their leading axis) in chunks of c = gcd(n, CHUNK) steps: for each
     chunk, ``data = prepare(cols)`` with ``cols`` the chunk's c + 1 rows of
@@ -44,10 +47,18 @@ def step_loop(step, carry, columns, prepare=None, graphs=True):
     forward-mode AD (see :func:`is_dual`) the loop runs eagerly instead, an
     explicit branch: a replayed graph carries no tangent. Tensors that
     require grad are refused on the card for the same reason. On the CPU,
-    or with ``graphs=False``, it runs eagerly."""
+    or with ``graphs=False``, it runs eagerly.
+
+    ``name`` keys the loop's counts in ``tracing.counters`` (steps, and on
+    the graph path replays, captures and the capture's host seconds), with
+    the lanes of the carry's first tensor (its elements over its leading
+    axis where it has more than one) and the chunk."""
     carry = tuple(carry)
     n = columns[0].shape[0] - 1
     c = math.gcd(n, CHUNK)
+    first = carry[0]
+    key = (name, first.numel() // first.shape[0] if first.dim() > 1 else first.numel(), c)
+    tracing.count('step_loop.steps', key, n)
     prepare = prepare or (lambda cols: cols)
 
     def body(carry, cols):
@@ -63,7 +74,7 @@ def step_loop(step, carry, columns, prepare=None, graphs=True):
         if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
             raise NotImplementedError('a replayed CUDA graph records no gradient: differentiate the native '
                                       'solver in forward mode (torch.func.jvp / jacfwd)')
-        return _graph_loop(body, carry, columns, n, c)
+        return _graph_loop(body, carry, columns, n, c, key)
     emitted = []
     for base in range(0, n, c):
         carry, em = body(carry, tuple(col[base:base + c + 1] for col in columns))
@@ -71,11 +82,12 @@ def step_loop(step, carry, columns, prepare=None, graphs=True):
     return carry, tuple(torch.stack(e) for e in zip(*emitted))
 
 
-def _graph_loop(body, carry, columns, n, c):
+def _graph_loop(body, carry, columns, n, c, key):
     """:func:`step_loop` from one CUDA graph of a chunk, replayed n / c - 1
     times. The first chunk runs eagerly on a side stream (the warm-up that
     capture needs) into the same static buffers, then the graph is captured
-    and replayed for the others."""
+    and replayed for the others; ``key`` counts them."""
+    t0 = time.perf_counter()
     static_cols = tuple(col[:c + 1].clone() for col in columns)
     static_carry = tuple(t.clone() for t in carry)
     static_emit = []
@@ -101,6 +113,9 @@ def _graph_loop(body, carry, columns, n, c):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         run()
+    tracing.counters['step_loop.capture_s'] += time.perf_counter() - t0
+    tracing.count('step_loop.captures', key)
+    tracing.count('step_loop.replays', key, n // c - 1)
     for base in range(c, n, c):
         for s, col in zip(static_cols, columns):
             s.copy_(col[base:base + c + 1])

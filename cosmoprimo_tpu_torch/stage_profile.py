@@ -193,6 +193,7 @@ def native_profile(card, n=64, nk=256, kmax=1.0, z=(0.0, 1.0), rng=None, slice_s
     """Print the native path's stages, with CUDA graphs and eagerly."""
     from .boltzmann import compute_thermodynamics
     from .boltzmann import perturbations as P
+    from .boltzmann import thermodynamics as T
     from .interpolator import kernel_tophat2
     from .ops import simpson
     params = [torch.from_numpy(p).to(DEVICE) for p in (
@@ -233,9 +234,10 @@ def native_profile(card, n=64, nk=256, kmax=1.0, z=(0.0, 1.0), rng=None, slice_s
         busy, _, _, launches, _ = profile_events(fn)
         print(f'stage, native B={n} nk={nk}: {name}: device {busy:.4f} ms in {launches} launches, stream '
               f'{stream_ms(fn):.3f} ms on {card}', flush=True)
-    # the recombination scan (6144 steps, ~370 launches each) is timed whole, not profiled
+    # the recombination scan (~370 launches a step) is timed whole, not profiled
+    scan = T.N_GRID - 1 - T.saha_steps()
     for graphs in (True, False):
-        print(f'stage, native B={n} nk={nk}: thermodynamics (recombination scan, 6144 steps), '
+        print(f'stage, native B={n} nk={nk}: thermodynamics (recombination scan, {scan} steps), '
               f'{"graphs" if graphs else "eager"}: stream {stream_ms(lambda: thermo(graphs)):.1f} ms on {card}',
               flush=True)
     loops = {'phase A': (lambda r, g: P._phase_a(r, g), 'eta_A', n_steps[0]),
@@ -284,7 +286,7 @@ def harmonic_profile(card, n=8, lmax=2900, rng=None, slice_steps=256):
         res = {}
         for taps in (False, True):
             busy, _, _, launches, _ = profile_events(lambda: P._rk4_loop(
-                deriv, coefs, project, y0, part, run['tabs'], run['lanes'], False,
+                deriv, coefs, project, y0, part, run['tabs'], run['lanes'], False, 'stage_profile',
                 emit=emit if taps else None, rates=rates if taps else None))
             res[taps] = (busy / slice_steps, launches / slice_steps)
         print(f'stage, {label}: {name} step, profiled eagerly on {slice_steps} steps: with the taps '

@@ -36,7 +36,26 @@ with dict operations (``counters['fftlog.launches'] = 0``).
 - ``fftlog_kernel.builds``: nvcc runs of the kernel's build in this process;
 - ``fftlog_kernel.build_s``: host seconds of the kernel library's first
   use: its build (or the check of a cached build) and its load;
-- ``bao_filter.fiducial_fits``: host fits of the BAO filters' fiducial.
+- ``bao_filter.fiducial_fits``: host fits of the BAO filters' fiducial;
+- ``step_loop.steps``, ``step_loop.replays``, ``step_loop.captures``: the
+  steps of the native solver's fixed-length loops (``ops/step_loop.py``),
+  the CUDA-graph replays and the captures that ran them, by ``(name, lanes,
+  chunk)``: the loop's name ('recombination', 'phase_a', 'phase_b', the
+  CMB loops' 'sources_a', 'sources_b', 'tensor', and 'stage_profile' for
+  ``stage_profile``'s slices), the lanes of its state
+  and its steps a chunk; a loop run eagerly (on the CPU, under forward-mode
+  AD, with ``graphs=False``) counts steps only;
+- ``step_loop.capture_s``: host seconds of the loops' eager first chunks
+  and captures, from the side stream's start to the capture's end.
+
+Spans that close on the device. ``span(name, sync=True)`` waits for the
+current CUDA stream before it closes, inside a profiled session only. The
+host issues a loop's graph replays far ahead of the device: without the
+wait, the device's time running them would fall, as idle host time and as
+kernels the trace links to no launch (which the benchmark's reader places
+by their start), under whatever span the host is in by then. The solver's
+loop spans are such spans (``cosmoprimo.thermodynamics``,
+``cosmoprimo.perturbations.phase_a``, ``.phase_b``).
 
 This module imports no JAX.
 """
@@ -55,6 +74,10 @@ counters = {
     'fftlog_kernel.builds': 0,
     'fftlog_kernel.build_s': 0.0,
     'bao_filter.fiducial_fits': 0,
+    'step_loop.steps': {},
+    'step_loop.replays': {},
+    'step_loop.captures': {},
+    'step_loop.capture_s': 0.0,
 }
 
 _sessions = 0       # profiled sessions of the program open in this process
@@ -76,10 +99,38 @@ class _Noop:
 NOOP = _Noop()
 
 
-def span(name):
+class _Synced:
+    """A profiler range that waits for the current CUDA stream before it
+    closes."""
+
+    __slots__ = ('_inner',)
+
+    def __init__(self, name):
+        self._inner = _range(name)
+
+    def __enter__(self):
+        self._inner.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if torch.cuda.is_initialized():
+            torch.cuda.current_stream().synchronize()
+        return self._inner.__exit__(*exc)
+
+
+def span(name, sync=False):
     """The span ``name`` (a context manager): a profiler range inside a
-    profiled session of the program, else :data:`NOOP`."""
-    return _range(name) if _sessions else NOOP
+    profiled session of the program, else :data:`NOOP`. With ``sync`` the
+    range closes after the current CUDA stream has finished its work."""
+    if not _sessions:
+        return NOOP
+    return _Synced(name) if sync else _range(name)
+
+
+def count(name, key, n=1):
+    """Add ``n`` to the count of ``key`` in the counter ``name`` (counts by key)."""
+    counts = counters[name]
+    counts[key] = counts.get(key, 0) + n
 
 
 @contextlib.contextmanager

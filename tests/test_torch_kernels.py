@@ -642,3 +642,43 @@ def test_spline_kernel_rejects_and_counts(cuda_device):
     spline.natural_cubic_coeffs(x.to(cuda_device), f.T.to(cuda_device))
     torch.cuda.synchronize()
     assert counters['spline.launches'] == launches + 2
+
+
+@pytest.mark.cuda
+def test_native_loops_replays_captures_and_spans(cuda_device):
+    """On the card each step loop of a call is one capture and n / c - 1
+    replays of its graph (tracing.counters, by loop name, lanes and chunk),
+    and the loops' spans (cosmoprimo.thermodynamics and
+    cosmoprimo.perturbations.phase_a, .phase_b) wait for the stream before
+    they close: every kernel that starts inside one ends inside it, the
+    graph's replayed kernels among them (within 0.1 ms, the alignment of the
+    profiler's device clock to its host clock; a replayed loop runs for
+    seconds past a span that does not wait)."""
+    import copy
+    from cosmoprimo_tpu_torch.boltzmann import compute_thermodynamics, thermodynamics
+    from cosmoprimo_tpu_torch.boltzmann.perturbations import linear_pk
+    cosmo, k = native_inputs(cuda_device)
+    ba, pp = cosmo.get_background(), cosmo.engine._perturbation_params()
+    n_steps = (512, 256, 1024)
+    before = copy.deepcopy(counters)
+    with tracing.profile() as prof:
+        th = compute_thermodynamics(cosmo['omega_b'], cosmo['h'], cosmo['T_cmb'], ba.efunc, tau_reio=cosmo['tau_reio'],
+                                    N_eff=cosmo['N_eff'])
+        linear_pk(pp, th, k, [0.0, 1.0], n_steps=n_steps)
+        torch.cuda.synchronize()
+    loops = {('recombination', 2, 32): thermodynamics.N_GRID - 1 - thermodynamics.saha_steps(),
+             ('phase_a', 32, 32): n_steps[0],
+             ('phase_b', 32, 32): n_steps[1]}
+    for key, n in loops.items():
+        assert counters['step_loop.steps'][key] - before['step_loop.steps'].get(key, 0) == n, key
+        assert counters['step_loop.replays'][key] - before['step_loop.replays'].get(key, 0) == n // 32 - 1, key
+        assert counters['step_loop.captures'][key] - before['step_loop.captures'].get(key, 0) == 1, key
+    assert counters['step_loop.capture_s'] > before['step_loop.capture_s']
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
+    kernels = [(e.start_ns(), e.end_ns()) for e in events if e.device_type() == cuda]
+    for name in ('cosmoprimo.thermodynamics', 'cosmoprimo.perturbations.phase_a', 'cosmoprimo.perturbations.phase_b'):
+        (start, end), = [(e.start_ns(), e.end_ns()) for e in events if e.name() == name and e.device_type() != cuda]
+        inside = [(s, e) for s, e in kernels if start <= s <= end]
+        assert len(inside) > 1000, name
+        assert max(e for _, e in inside) <= end + 100_000, name
