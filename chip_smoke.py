@@ -78,6 +78,13 @@ Phases, each failing the run (non-zero exit) if its check fails:
    events, in turns) beside the bytes bound, and the kernel's device time;
    the kernels line's spline_solve entry is the case furthest from its
    bound;
+9c. the phase-A kernel of the native perturbations at the native_pk cell's
+   shapes (256 cosmologies of its box, nk = 256 to 0.9 h/Mpc, 2560 steps,
+   the emulator's 30 z): one launch, the end state and the harvest against
+   the PyTorch graph path on the card at 1e-9 of each (row, cosmology)'s
+   largest |value|; both paths' times (CUDA events, in turns), the kernel's
+   device time, its block (lanes, threads, shared memory: one block an
+   SM), and its float64-operation and byte bounds with the share reached;
 10. native pipeline: make_native_pk_pipeline_batched(nk=256, kmax=1.0,
     z=(0, 1)) at B = 64 (B = 256 takes over 30 s a call: PERF.md), its
     three step loops replayed from CUDA graphs: finite outputs, the wall
@@ -284,6 +291,9 @@ GRAPH_RTOL = 1e-13        # graph replay against the eager loop, on the card
 # lane of P(k) moves by up to ~55% against the budget of kmax = 0.5); the
 # check is of the replay
 GRAPH_KMAX, GRAPH_N_STEPS = 0.05, (768, 384, 2048)
+# the phase-A kernel at the native_pk cell's shapes (benchmark/configs/native_pk.json)
+B_RK4, NK_RK4, RK4_KMAX = 256, 256, 0.9
+RK4_BAR = 1e-9            # kernel against the PyTorch graph path, per (row, cosmology)
 # CLASS v3.1.1 anchors of the DESI fiducial (the JAX package's
 # tests/test_perturbations.py and test_thermodynamics.py): P(k) in (Mpc/h)^3
 # at k in h/Mpc, the BAO band k <= 0.21
@@ -487,6 +497,9 @@ def check(ok, message):
 # the spline kernel's launches in each main-path run, by path: summed into the
 # kernels line's spline_solve entry
 SPLINE_LAUNCHES = {}
+# the phase-A kernel's launches in each main-path run that runs phase A on the
+# card, by path: summed into the kernels line's rk4_phase_a entry
+RK4_LAUNCHES = {}
 
 
 @contextlib.contextmanager
@@ -524,8 +537,10 @@ def ncdm_pins(label):
 
 
 def main_run_start():
-    """Set both kernels' launch counters to 0 before a main-path run."""
+    """Set the kernels' launch counters, and the phase-A fallbacks, to 0
+    before a main-path run."""
     counters['fftlog.launches'] = counters['spline.launches'] = 0
+    counters['rk4_kernel.launches'], counters['rk4_kernel.fallbacks'] = {}, {}
 
 
 def note_splines(label, required=True):
@@ -535,6 +550,23 @@ def note_splines(label, required=True):
     SPLINE_LAUNCHES[label] = counters['spline.launches']
     check(not required or SPLINE_LAUNCHES[label] > 0, f'{label} did not launch the spline kernel')
     return SPLINE_LAUNCHES[label]
+
+
+def phase_a_fallbacks(fallbacks):
+    """The fallbacks of phase A of integrate_perturbations among the counts
+    of ``rk4_kernel.fallbacks``: reason -> count."""
+    return {reason: n for (name, reason), n in fallbacks.items() if name == 'phase_a'}
+
+
+def note_rk4(label):
+    """Keep the phase-A kernel's launches since main_run_start() as those of
+    the main-path run ``label``, which runs phase A on the card: fail if it
+    launched none or if a phase A fell back to the PyTorch loop."""
+    RK4_LAUNCHES[label] = sum(counters['rk4_kernel.launches'].values())
+    check(RK4_LAUNCHES[label] > 0, f'{label} did not launch the phase-A kernel')
+    fallbacks = phase_a_fallbacks(counters['rk4_kernel.fallbacks'])
+    check(not fallbacks, f'{label}: phase A fell back to the PyTorch loop on the card ({fallbacks})')
+    return RK4_LAUNCHES[label]
 
 
 def rel_err(got, ref):
@@ -826,7 +858,7 @@ def native_path(fftlog_kernel, rng, card):
     params_dev = [torch.from_numpy(p).to(DEVICE) for p in params]
     fn, _ = make_native_pk_pipeline_batched(nk=NK_NATIVE, kmax=1.0, z=(0.0, 1.0))
     torch.cuda.reset_peak_memory_stats()
-    counters['fftlog.launches'] = 0
+    main_run_start()
     t0 = time.perf_counter()
     pk, sigma8 = fn(*params_dev)
     torch.cuda.synchronize()
@@ -836,9 +868,10 @@ def native_path(fftlog_kernel, rng, card):
           'native pipeline output shapes are wrong')
     check(bool(torch.isfinite(pk).all()) and bool(torch.isfinite(sigma8).all()), 'native pipeline outputs are not finite')
     wall = wall_ms(lambda: fn(*params_dev), reps=3, warmup=False)
+    rk4 = note_rk4('native pipeline')
     print(f'native pipeline: B={B_NATIVE}, nk={NK_NATIVE}, kmax=1.0 h/Mpc (8192 + 4096 RK4 steps), z=[0, 1]: wall '
-          f'{wall:.1f} ms (median of 3 after the first call, {first * 1e3:.1f} ms), peak memory '
-          f'{peak_gb:.2f} GB, sigma8 range [{sigma8.min().item():.4f}, {sigma8.max().item():.4f}] on {card}',
+          f'{wall:.1f} ms (median of 3 after the first call, {first * 1e3:.1f} ms), phase-A kernel launches {rk4} '
+          f'(4 calls), peak memory {peak_gb:.2f} GB, sigma8 range [{sigma8.min().item():.4f}, {sigma8.max().item():.4f}] on {card}',
           flush=True)
 
     # 11. the DESI fiducial at full knobs against the CLASS anchors; its
@@ -856,12 +889,14 @@ def native_path(fftlog_kernel, rng, card):
     pk0, pk1 = (interp(k_bao, torch.tensor([z], dtype=torch.float64, device=DEVICE))[:, 0].cpu().numpy()
                 for z in (0.0, 1.0))
     splines = note_splines('native DESI engine')
+    rk4 = note_rk4('native DESI engine')
     errs = {'sigma8_m': abs(sigma8_m / SIGMA8_M_CLASS - 1), 'sigma8_cb': abs(sigma8_cb / SIGMA8_CB_CLASS - 1),
             'pk(z=0)': np.max(np.abs(pk0 / PK_M_Z0[BAO_BAND] - 1)), 'pk(z=1)': np.max(np.abs(pk1 / PK_M_Z1[BAO_BAND] - 1))}
     z_drag, z_star, rs_drag = th.z_drag.item(), th.z_star_noreion.item(), th.rs_drag.item()
     tau = abs(th.tau_reio.item() - desi['tau_reio'].item())
     print(f'native DESI engine (nk_pk=128, kmax_pk=10: 10240 + 6144 steps): built in {build:.1f} s on {card}; '
-          f'kernel launches {launches}, spline kernel launches {splines} (with its P(k) interpolator); against '
+          f'kernel launches {launches}, spline kernel launches {splines} (with its P(k) interpolator), phase-A '
+          f'kernel launches {rk4}; against '
           f'CLASS: sigma8_m {sigma8_m:.6f} ({errs["sigma8_m"]:.2e}, bar 5e-3), '
           f'sigma8_cb {sigma8_cb:.6f} ({errs["sigma8_cb"]:.2e}, bar 5e-3), P(k) in the BAO band z=0 '
           f'{errs["pk(z=0)"]:.2e} and z=1 {errs["pk(z=1)"]:.2e} (bar 1.2e-2); z_drag {z_drag:.3f} (bar 2.0 from '
@@ -885,18 +920,24 @@ def native_path(fftlog_kernel, rng, card):
         th = cosmo.get_thermodynamics()
         return fn(*p), {name: getattr(th, name).cpu() for name in scalars}, cosmo
 
+    main_run_start()
     (pk, sigma8), th_dev, cosmo_dev = run(DEVICE)
+    rk4 = note_rk4('native card vs CPU')
     (pk_cpu, sigma8_cpu), th_cpu, cosmo_cpu = run('cpu')
     pk_err = (pk.cpu() / pk_cpu - 1).abs().max().item()
     s8_err = (sigma8.cpu() / sigma8_cpu - 1).abs().max().item()
     th_err = max((th_dev[name] / th_cpu[name] - 1).abs().max().item() for name in scalars)
     print(f'native, card vs CPU, {B_NATIVE_CHECK} cosmologies, kmax=0.5: pk_m {pk_err:.3e}, sigma8 {s8_err:.3e} '
-          f'(bar {NATIVE_RTOL:g}), thermodynamics scalars {th_err:.3e} (bar {THERMO_RTOL:g})', flush=True)
+          f'(bar {NATIVE_RTOL:g}), thermodynamics scalars {th_err:.3e} (bar {THERMO_RTOL:g}); the card\'s phase-A '
+          f'kernel launches {rk4}', flush=True)
     check(pk_err <= NATIVE_RTOL and s8_err <= NATIVE_RTOL and th_err <= THERMO_RTOL, 'native card and CPU disagree')
     native_worst_lane(pk.cpu(), pk_cpu, {DEVICE: cosmo_dev, 'cpu': cosmo_cpu}, np.geomspace(1e-4, 0.5, NK_NATIVE),
                       (0.0, 1.0))
 
-    # 13. graph replay against the eager loop, on the card, on the inputs of 12
+    # 13. graph replay against the eager loop, on the card, on the inputs of 12:
+    # the recombination scan and phase B. Phase A runs the hand kernel on both
+    # sides (graphs does not reach it); phase 9c holds it to the graph path.
+    main_run_start()
     p = [torch.from_numpy(v).to(DEVICE) for v in params]
     cosmo = Cosmology(omega_cdm=p[0], omega_b=p[1], h=p[2], n_s=p[3], logA=p[4], engine='native')
     ba, pp = cosmo.get_background(), cosmo.engine._perturbation_params()
@@ -911,12 +952,14 @@ def native_path(fftlog_kernel, rng, card):
                                              graphs=graphs)['pk_m'])
         torch.cuda.synchronize()
         out[graphs] += (time.perf_counter() - t0,)
+    rk4 = note_rk4('native graphs vs eager')
     x_err = ((out[True][0] - out[False][0]).abs() / out[False][0].abs()).max().item()
     pk_err = ((out[True][1] - out[False][1]).abs() / out[False][1].abs()).max().item()
     print(f'native, CUDA graphs vs eager on the card, {B_NATIVE_CHECK} cosmologies, kmax={GRAPH_KMAX}, n_steps='
           f'{GRAPH_N_STEPS}: x_e {x_err:.3e}, pk_m '
           f'{pk_err:.3e} (bar {GRAPH_RTOL:g}); wall {out[True][2]:.2f} s with graphs, {out[False][2]:.2f} s eagerly '
-          f'on {card}', flush=True)
+          f'on {card}; phase A is the hand kernel on both sides ({rk4} launches; held to the graph path in phase 9c)',
+          flush=True)
     check(bool(torch.isfinite(out[False][1]).all()), 'the eager loop at GRAPH_N_STEPS is not finite')
     check(x_err <= GRAPH_RTOL and pk_err <= GRAPH_RTOL, 'the graph replay disagrees with the eager loop')
     return launches
@@ -1744,6 +1787,8 @@ def parallel_worker(port, nproc, rank, outdir):
         torch.cuda.synchronize()
         report['launches'] = counters['fftlog.launches']
         report['spline_launches'] = counters['spline.launches']
+        report['rk4_launches'] = sum(counters['rk4_kernel.launches'].values())
+        report['rk4_fallbacks'] = phase_a_fallbacks(counters['rk4_kernel.fallbacks'])
         report['walls']['main path'] = time.perf_counter() - t0
         for shape, (arrays, epochs) in fits.items():
             report[f'fit {shape} epochs'] = epochs
@@ -1821,6 +1866,9 @@ def parallel(card):
     errors = reports[0]['errors']
     launches = sum(r['launches'] for r in reports)
     SPLINE_LAUNCHES['parallel, 2 ranks'] = sum(r['spline_launches'] for r in reports)
+    RK4_LAUNCHES['parallel, 2 ranks'] = sum(r['rk4_launches'] for r in reports)
+    check(all(r['rk4_launches'] > 0 for r in reports), 'a rank\'s sharded native run did not launch the phase-A kernel')
+    check(not any(r['rk4_fallbacks'] for r in reports), 'a rank\'s phase A fell back to the PyTorch loop on the card')
     print(f'parallel (2 ranks, gloo; both on the one card: NCCL refuses two ranks on one device): the '
           f'collectives and point-to-point ok; QMC fan-out of {N_QMC} points against one process, max |d| '
           f'{errors["qmc"]:.3e} (bar 0: the same chunks); world wall {wall2:.1f} s, rank walls '
@@ -2511,6 +2559,96 @@ def spline_solve(card):
     return dict(line, max_abs_err=max(entry['max_abs_err'] for entry in lines))
 
 
+def rk4_operations(ns):
+    """float64 operations of one lane's RK4 step in the phase-A kernel,
+    counted from csrc/rk4_phase_a.cu (an add, multiply, divide, square
+    root, exp or log is one): four derivatives, the stage combinations over
+    the N state rows, the coefficients at two points and the projections;
+    Q = 5 ns massive-neutrino bins."""
+    q, n = 5 * ns, 49 + 45 * ns
+    derivative = 4 * q + 21 + 55 + 122 + 76 + 39 * q    # sums, metric, fluids, photons, F_ur, Psi
+    coefficients = 136 + 11 + 22 * q                    # the hierarchy's (fetch, 10 exp), the neutrinos'
+    return 4 * derivative + 13 * n + 2 * coefficients + 100 + 6 * q
+
+
+def rk4_phase_a(card):
+    """Phase 9c: the phase-A kernel at the native_pk cell's shapes against
+    the PyTorch graph path on the card, then both paths' times (CUDA
+    events, kernel, graphs, kernel) beside the kernel's bounds. Returns the
+    kernels line's entry."""
+    from cosmoprimo_tpu_torch import Cosmology
+    from cosmoprimo_tpu_torch.boltzmann import compute_thermodynamics, perturbations as P
+    from cosmoprimo_tpu_torch.ops import rk4_kernel
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(21)
+
+    def draw(lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, B_RK4)).to(dev)
+
+    cosmo = Cosmology(engine='native', logA=draw(2.8, 3.3), n_s=draw(0.88, 1.06), h=draw(0.55, 0.82),
+                      omega_b=draw(0.019, 0.026), omega_cdm=draw(0.08, 0.2), m_ncdm=[draw(0.0, 0.6)], device=dev)
+    params = cosmo.engine._perturbation_params()
+    th = compute_thermodynamics(cosmo['omega_b'], cosmo['h'], cosmo['T_cmb'], cosmo.get_background().efunc,
+                                tau_reio=cosmo['tau_reio'], N_eff=cosmo['N_eff'])
+    k = torch.from_numpy(np.geomspace(1e-4, RK4_KMAX, NK_RK4)).to(dev)[None] * params['h'][:, None]
+    z = list(np.linspace(0.0, np.sqrt(10.0), 30) ** 2)
+    run = P._setup(params, th, k, z, P.steps_for_kmax(RK4_KMAX))
+    lanes, ns, n = B_RK4 * NK_RK4, run['lanes'].ns, run['eta_A'].shape[0] - 1
+
+    def phase_a(kernel):
+        args = (run['y0'], run['eta_A'], run['tabs'], run['lanes'], True, 'phase_a')
+        if kernel:
+            return P._rk4_a(*args, harvest_eta=run['eta_t'])[:2]
+        return P._rk4_loop(P.deriv_full, P._coefs_a, P._project_a, *args,
+                           harvest=(run['eta_t'], P._rows_a(run['lanes'].ns)))[:2]
+
+    key = ('phase_a', lanes, n)
+    before = counters['rk4_kernel.launches'].get(key, 0)
+    got, ref = phase_a(True), phase_a(False)
+    torch.cuda.synchronize()
+    check(counters['rk4_kernel.launches'].get(key, 0) == before + 1, 'phase A is not one launch of the kernel')
+    errs = []
+    for g, r in zip(got, ref):   # the end state (N, B, nk), the harvest (n_z, rows, B, nk)
+        check(bool(torch.isfinite(r).all()), 'the PyTorch graph path of phase A is not finite')
+        errs.append(((g - r).abs().amax(dim=-1) / r.abs().amax(dim=-1).clamp(min=1e-300)).max().item())
+    max_abs = max((g - r).abs().max().item() for g, r in zip(got, ref))
+    del got, ref
+
+    def timed(kernel):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        phase_a(kernel)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    kernel_ms, graph_ms = [], []
+    for kernel in (True, False, True):
+        (kernel_ms if kernel else graph_ms).append(timed(kernel))
+    ms = float(np.mean(kernel_ms))
+    device, host = device_ms(lambda: phase_a(True), reps=3)
+    device = 'not measured (the profiler shows no device time)' if device is None else f'{device:.1f} ms'
+    per_block, threads, shared = rk4_kernel.block(ns)
+    ops = rk4_operations(ns) * lanes * n
+    nz = len(z)
+    nbytes = 8 * ((n + 1) * lanes + 2 * run['y0'].numel() + nz * len(P._rows_a(ns)) * lanes
+                  + run['tabs']['stack'].numel())
+    ops_ms, bytes_ms = ops / (FP64_TFLOP_S * 1e12) * 1e3, nbytes / (HBM_TB_S * 1e12) * 1e3
+    bound_ms, bound_by = (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
+    print(f'phase-A kernel vs the PyTorch graph path on the card ({B_RK4} x {NK_RK4} lanes, {n} steps, {ns} '
+          f'massive species): end state {errs[0]:.3e}, harvest {errs[1]:.3e} per (row, cosmology) (bar '
+          f'{RK4_BAR:g}); time: kernel {", ".join(f"{v:.1f}" for v in kernel_ms)} ms, graph path '
+          f'{graph_ms[0]:.1f} ms ({graph_ms[0] / ms:.1f}x), device (torch.profiler) {device}, the host\'s enqueue '
+          f'{host:.3f} ms; block: {per_block} lanes, {threads} threads ({threads // 32} warps an SM), {shared} bytes '
+          f'of shared memory; bound {bound_ms:.2f} ms ({bound_by}: {ops / 1e12:.3f} TFLOP at {FP64_TFLOP_S} '
+          f'TFLOP/s; bytes {nbytes / 1e9:.3f} GB, {bytes_ms:.3f} ms), the kernel at {bound_ms / ms:.1%} of it; '
+          f'on {card}', flush=True)
+    check(max(errs) <= RK4_BAR, 'the phase-A kernel disagrees with the PyTorch graph path')
+    return {'name': 'rk4_phase_a', 'route': 'cuda', 'source': 'cosmoprimo_tpu_torch/csrc/rk4_phase_a.cu',
+            'replaces': None, 'max_abs_err': max_abs, 'ms': ms, 'plain_ms': graph_ms[0], 'bound_ms': bound_ms,
+            'bound_by': bound_by, 'library_ms': None}
+
+
 def library_fft_ms(x, args):
     """CUDA-event time of the library's FFT calls on the same rows: the
     padded, prefactored rows through torch.fft.rfft, the product with u and
@@ -2552,6 +2690,9 @@ def main():
               'the build does not hold one FFTLog kernel per padded length')
         # the spline solve: its factors, and 2 layouts x shared or per-row knots x values or given
         check(sum('spline_' in e for e in entries) == 9, 'the build does not hold the spline kernels')
+        from cosmoprimo_tpu_torch.ops import rk4_kernel
+        check(sum('rk4_phase_a_kernel' in e for e in entries) == len(rk4_kernel.SPECIES),
+              'the build does not hold one phase-A kernel per number of massive species')
         check(not any(spills), 'ptxas reports register spills')
 
     # 3. kernel against plain, on the setup arrays of the real transforms
@@ -2726,6 +2867,9 @@ def main():
     # 9b. the spline solve kernel at the DESI cell's shapes
     spline_line = spline_solve(card)
 
+    # 9c. the phase-A kernel at the native_pk cell's shapes
+    rk4_line = rk4_phase_a(card)
+
     # 10-13. the native Boltzmann path
     with ncdm_pins('10-13'):
         launches += native_path(fftlog_kernel, rng, card)
@@ -2767,13 +2911,16 @@ def main():
     launches += api_surface(fftlog_kernel, rng, card)
 
     spline_line['launches'] = sum(SPLINE_LAUNCHES.values())
+    rk4_line['launches'] = sum(RK4_LAUNCHES.values())
+    print('phase-A kernel launches in the main-path runs: '
+          + ', '.join(f'{label} {n}' for label, n in RK4_LAUNCHES.items()), flush=True)
     print('spline kernel launches in the main-path runs: '
           + ', '.join(f'{label} {n}' for label, n in SPLINE_LAUNCHES.items()), flush=True)
     print(json.dumps({'kernels': [{
         'name': 'fftlog_core', 'route': 'cuda', 'source': 'cosmoprimo_tpu_torch/csrc/fftlog_core.cu',
         'replaces': 'cosmoprimo_tpu/ops/pallas_fft.py:244', 'launches': launches,
         'max_abs_err': max_abs_err, 'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
-        'bound_by': bound_by, 'library_ms': library_ms}, spline_line]}))
+        'bound_by': bound_by, 'library_ms': library_ms}, spline_line, rk4_line]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))
     return 0

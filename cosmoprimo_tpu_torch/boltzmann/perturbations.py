@@ -17,7 +17,9 @@ without bound. The two phases run through
 card); the same loop can emit rows of every step's end
 state instead (the line-of-sight source taps of the CMB spectra,
 :func:`compute_los_sources`, and the series of
-:func:`compute_perturbation_series`).
+:func:`compute_perturbation_series`). On the card, phase A of
+:func:`integrate_perturbations` runs in one hand-written CUDA kernel instead
+(:mod:`~cosmoprimo_tpu_torch.ops.rk4_kernel`, :func:`_rk4_a`).
 
 Per-cosmology scalars of the tables (``tabs``) have shape (B, 1), so that
 they broadcast against the (B, nk) lanes. The factors that depend on k and
@@ -29,12 +31,14 @@ Normalization: comoving curvature R = 1; transfers in the CDM-comoving
 synchronous gauge, delta^syn_i = delta^N_i + 3 aH (1 + w_i) theta_c / k^2.
 """
 
+import math
+
 import numpy as np
 import torch
 
 from .. import constants, tracing
-from ..ops import cumsum_blocked, gauss_laguerre_nodes, interp, linspace_rows
-from ..ops.step_loop import step_loop
+from ..ops import cumsum_blocked, gauss_laguerre_nodes, interp, linspace_rows, rk4_kernel
+from ..ops.step_loop import CHUNK, step_loop
 from . import thermodynamics as _thermo
 
 # hierarchy truncations, the JAX package's defaults
@@ -286,7 +290,8 @@ class Lanes(object):
     """The factors of a run that depend on k and the curvature only, made
     once: ``k`` (B, nk) in 1/Mpc, the hierarchies' couplings (the ladders of
     rows F_gamma_2 .. F_ur_L in one, and of one massive-neutrino block) and
-    the momentum grid."""
+    the momentum grid: ``q``, ``q2``, ``dlnf0``, ``w2``, ``w2q``, ``w2q2`` (5,
+    1, 1) each, and ``grid``, the same 30 values in that order in numpy."""
 
     def __init__(self, tabs, k):
         self.k = k
@@ -294,10 +299,11 @@ class Lanes(object):
         K = tabs['K']
         self.am = tabs['am']                                   # (ns, B, 1)
         self.ns = self.am.shape[0]
-        q, w_fd, dlnf0 = (torch.from_numpy(v).to(k.device).reshape(-1, 1, 1) for v in _ncdm_q())
-        self.q, self.q2, self.dlnf0 = q, q ** 2, dlnf0
-        self.w2 = w_fd * q ** 2
-        self.w2q, self.w2q2 = self.w2 * q, self.w2 * q ** 2
+        q, w_fd, dlnf0 = (torch.from_numpy(v).reshape(-1, 1, 1) for v in _ncdm_q())
+        w2 = w_fd * q ** 2
+        grid = (q, q ** 2, dlnf0, w2, w2 * q, w2 * q ** 2)
+        self.grid = torch.cat([v.reshape(-1) for v in grid]).numpy()     # on the host, for the phase-A kernel
+        self.q, self.q2, self.dlnf0, self.w2, self.w2q, self.w2q2 = (v.to(k.device) for v in grid)
         r = torch.clamp(K / self.k2, max=_R_CLOSED_MAX)
         self.s2sq = 1.0 - 3.0 * r
         s_g, s_p, s_u, s_n = (_s_table(L, K, k) for L in (LMAX_G, LMAX_POL, LMAX_UR, LMAX_NCDM))
@@ -856,6 +862,31 @@ def _rk4_loop(deriv, coefs, project, y0, eta_grid, tabs, lanes, graphs, name, ha
     return carry[0], (carry[2] if harvest is not None else None), (emitted[0] if emit is not None else None)
 
 
+def _rk4_a(y0, eta_grid, tabs, lanes, graphs, name, harvest_eta=None, emit=None, rates=None):
+    """Phase A's RK4 loop (:func:`_rk4_loop` over :func:`deriv_full`,
+    :func:`_coefs_a` and :func:`_project_a`, harvesting :func:`_rows_a` at
+    ``harvest_eta`` (B, n_z) or None), as the hand kernel of
+    :mod:`~cosmoprimo_tpu_torch.ops.rk4_kernel` where it engages (CUDA float64
+    tensors outside forward mode and autograd, no ``emit``, 1-3 massive
+    species), else as :func:`_rk4_loop`, counted in
+    ``tracing.counters['rk4_kernel.fallbacks']`` by (``name``, reason). The
+    kernel's steps count in ``step_loop.steps`` under the PyTorch loop's
+    key. Returns what :func:`_rk4_loop` returns."""
+    tensors = [y0, eta_grid, lanes.k, lanes.eta_rsa] + [tabs[key] for key in ('stack', 'am') + rk4_kernel.ROW_KEYS]
+    tensors += [harvest_eta] if harvest_eta is not None else []
+    reason = rk4_kernel.fallback_reason(tensors, lanes.ns, emit)
+    if reason is None:
+        y, out = rk4_kernel.launch(y0, eta_grid, tabs, lanes, harvest_eta, _n_state(lanes.ns), len(_rows_a(lanes.ns)),
+                                   name)
+        n = eta_grid.shape[0] - 1
+        tracing.count('step_loop.steps', (name, y0[0].numel(), math.gcd(n, CHUNK)), n)
+        return y, out, None
+    tracing.count('rk4_kernel.fallbacks', (name, reason))
+    harvest = (harvest_eta, _rows_a(lanes.ns)) if harvest_eta is not None else None
+    return _rk4_loop(deriv_full, _coefs_a, _project_a, y0, eta_grid, tabs, lanes, graphs, name, harvest=harvest,
+                     emit=emit, rates=rates)
+
+
 def _psi_rates_a(c, lanes):
     """d/deta at a fixed state of the coefficients of psi = phi - mpsi stress
     (phase A), from the fetch's rates: 'mpsi', and those of the stress,
@@ -979,8 +1010,7 @@ def _emitting_run(params, thermo, k, n_steps, graphs, emitters, rates=(None, Non
     and the emitted rows of each phase."""
     run = _setup(params, thermo, k, None, n_steps)
     tabs, lanes = run['tabs'], run['lanes']
-    yA, _, srcA = _rk4_loop(deriv_full, _coefs_a, _project_a, run['y0'], run['eta_A'], tabs, lanes, graphs,
-                            'sources_a', emit=emitters[0], rates=rates[0])
+    yA, _, srcA = _rk4_a(run['y0'], run['eta_A'], tabs, lanes, graphs, 'sources_a', emit=emitters[0], rates=rates[0])
     yB0 = _ncdm_handoff(yA, run['eta_A'][-1], tabs, lanes)
     _, _, srcB = _rk4_loop(deriv_rsa, _coefs_b, _project_b, yB0, run['eta_B'], tabs, lanes, graphs, 'sources_b',
                            emit=emitters[1], rates=rates[1])
@@ -1064,11 +1094,11 @@ def _setup(params, thermo, k, z_outputs, n_steps):
 
 
 def _phase_a(run, graphs):
-    """The full-hierarchy phase: its end state and harvest, in the span
-    ``cosmoprimo.perturbations.phase_a`` (closed on the device)."""
+    """The full-hierarchy phase (:func:`_rk4_a`): its end state and harvest,
+    in the span ``cosmoprimo.perturbations.phase_a`` (closed on the device)."""
     with tracing.span('cosmoprimo.perturbations.phase_a', sync=True):
-        yA, outA, _ = _rk4_loop(deriv_full, _coefs_a, _project_a, run['y0'], run['eta_A'], run['tabs'],
-                                run['lanes'], graphs, 'phase_a', harvest=(run['eta_t'], _rows_a(run['lanes'].ns)))
+        yA, outA, _ = _rk4_a(run['y0'], run['eta_A'], run['tabs'], run['lanes'], graphs, 'phase_a',
+                             harvest_eta=run['eta_t'])
     return yA, outA
 
 
@@ -1127,7 +1157,8 @@ def integrate_perturbations(params, thermo, k, z_outputs, n_steps=None, graphs=T
     each (B, n_z, nk), normalized to comoving curvature R = 1.
     ``n_steps``: the static (n_steps_a, n_steps_b, m_tab) budget, see
     :func:`steps_for_kmax`; None gives the module defaults. ``graphs``:
-    replay the RK4 loops from CUDA graphs on the card. The call is the span
+    replay the RK4 loops from CUDA graphs on the card (phase A runs in its
+    hand kernel there, :func:`_rk4_a`). The call is the span
     ``cosmoprimo.perturbations``, with ``.setup`` (the tables, the grids,
     the initial state), ``.phase_a`` and ``.phase_b`` inside it."""
     with tracing.span('cosmoprimo.perturbations'):

@@ -75,6 +75,9 @@ def get_calculator(cosmo, section=None):
                         value = torch.as_tensor(np.asarray(value), dtype=torch.float64, device=device)
                         value = value.expand(batch + value.shape)
                     toret[f'{section_name}.{name}'] = value
+            # the engine and its sections refer to each other: free this call's
+            # tables now, not at the collector's next full pass
+            clone.engine._sections.clear()
         except CosmologyError as exc:
             raise CalculatorComputationError from exc
         return toret

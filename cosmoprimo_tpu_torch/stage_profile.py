@@ -20,12 +20,13 @@ on the filters' grid, each traced filter, to_xi of the smooth and of the
 linear spectrum, kirkby2013 and to_pk, then one peakaverage filter and
 to_xi as a whole. The native path (make_native_pk_pipeline_batched at
 B = 64, nk = 256, kmax = 1.0, z = [0, 1]) by stage: set-up, thermodynamics,
-tables and grids, phase A, phase B, assembly and sigma8, each with CUDA
-graphs and eagerly: the loops' device ms and launches per step under
-torch.profiler on an eager slice of 256 steps (a full phase is millions of
-launches), their stream ms over the whole stage (CUDA events; eagerly, the
-slice's per step times the steps), and the device's busy share; the
-recombination scan is timed, not profiled. The native CMB path (harmonic:
+tables and grids, phase A (one launch of its kernel, profiled whole),
+phase B, assembly and sigma8; phase B with CUDA graphs and eagerly: its
+device ms and launches per step under torch.profiler on an eager slice of
+256 steps (a full phase is millions of launches), its stream ms over the
+whole stage (CUDA events; eagerly, the slice's per step times the steps),
+and the device's busy share; the recombination scan is timed, not
+profiled. The native CMB path (harmonic:
 B = 8, lmax 2900, the 198-k coarse grid): the emitting RK4 steps with and
 without the line-of-sight taps (device ms and launches a step, profiled
 eagerly on a slice), the sources with graphs, the projection beside its
@@ -240,8 +241,12 @@ def native_profile(card, n=64, nk=256, kmax=1.0, z=(0.0, 1.0), rng=None, slice_s
         print(f'stage, native B={n} nk={nk}: thermodynamics (recombination scan, {scan} steps), '
               f'{"graphs" if graphs else "eager"}: stream {stream_ms(lambda: thermo(graphs)):.1f} ms on {card}',
               flush=True)
-    loops = {'phase A': (lambda r, g: P._phase_a(r, g), 'eta_A', n_steps[0]),
-             'phase B': (lambda r, g: P._phase_b(r, yA, g), 'eta_B', n_steps[1])}
+    # phase A is one launch of its hand kernel on the card: profiled whole
+    busy, _, _, launches, _ = profile_events(lambda: P._phase_a(run, True))
+    print(f'stage, native B={n} nk={nk}: phase A ({n_steps[0]} steps, ops/rk4_kernel.py): device {busy:.1f} ms in '
+          f'{launches} launches, {busy / n_steps[0]:.4f} ms a step; stream {stream_ms(lambda: P._phase_a(run, True)):.1f} '
+          f'ms on {card}', flush=True)
+    loops = {'phase B': (lambda r, g: P._phase_b(r, yA, g), 'eta_B', n_steps[1])}
     for name, (fn, grid, steps) in loops.items():
         # profiled eagerly on a slice (a graph is captured anew in every call,
         # and capture is kept out of the profiler); the replayed graph runs the

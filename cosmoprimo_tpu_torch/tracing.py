@@ -46,7 +46,16 @@ with dict operations (``counters['fftlog.launches'] = 0``).
   and its steps a chunk; a loop run eagerly (on the CPU, under forward-mode
   AD, with ``graphs=False``) counts steps only;
 - ``step_loop.capture_s``: host seconds of the loops' eager first chunks
-  and captures, from the side stream's start to the capture's end.
+  and captures, from the side stream's start to the capture's end;
+- ``rk4_kernel.launches``: the phase-A kernel's launches
+  (``ops/rk4_kernel.py``), by ``(name, lanes, steps)``: the loop's name,
+  its lanes and the steps of the launch, counted once the launch has
+  returned without error. A loop the kernel runs still counts its steps in
+  ``step_loop.steps`` under the key the PyTorch loop gives them;
+- ``rk4_kernel.fallbacks``: the phase-A loops that ran the PyTorch path
+  instead, by ``(name, reason)``: 'emit' (the loops that emit rows every
+  step), 'dual', 'grad', 'device', 'dtype' and 'species' (see
+  ``rk4_kernel.fallback_reason``).
 
 Spans that close on the device. ``span(name, sync=True)`` waits for the
 current CUDA stream before it closes, inside a profiled session only. The
@@ -78,6 +87,8 @@ counters = {
     'step_loop.replays': {},
     'step_loop.captures': {},
     'step_loop.capture_s': 0.0,
+    'rk4_kernel.launches': {},
+    'rk4_kernel.fallbacks': {},
 }
 
 _sessions = 0       # profiled sessions of the program open in this process

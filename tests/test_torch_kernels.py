@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions:
-the FFTLog core and the spline solve.
+the FFTLog core, the spline solve and phase A of the native perturbations.
 
 Every test here needs a CUDA device and nvcc, and skips without them. They
 need no JAX; tests/conftest.py imports it, so on a machine without JAX run
@@ -648,12 +648,14 @@ def test_spline_kernel_rejects_and_counts(cuda_device):
 def test_native_loops_replays_captures_and_spans(cuda_device):
     """On the card each step loop of a call is one capture and n / c - 1
     replays of its graph (tracing.counters, by loop name, lanes and chunk),
-    and the loops' spans (cosmoprimo.thermodynamics and
+    but phase A, which is one launch of its kernel (counted in
+    rk4_kernel.launches) and counts its steps as the loop would; and the
+    loops' spans (cosmoprimo.thermodynamics and
     cosmoprimo.perturbations.phase_a, .phase_b) wait for the stream before
     they close: every kernel that starts inside one ends inside it, the
-    graph's replayed kernels among them (within 0.1 ms, the alignment of the
-    profiler's device clock to its host clock; a replayed loop runs for
-    seconds past a span that does not wait)."""
+    graph's replayed kernels and phase A's kernel among them (within 0.1 ms,
+    the alignment of the profiler's device clock to its host clock; a
+    replayed loop runs for seconds past a span that does not wait)."""
     import copy
     from cosmoprimo_tpu_torch.boltzmann import compute_thermodynamics, thermodynamics
     from cosmoprimo_tpu_torch.boltzmann.perturbations import linear_pk
@@ -667,18 +669,157 @@ def test_native_loops_replays_captures_and_spans(cuda_device):
         linear_pk(pp, th, k, [0.0, 1.0], n_steps=n_steps)
         torch.cuda.synchronize()
     loops = {('recombination', 2, 32): thermodynamics.N_GRID - 1 - thermodynamics.saha_steps(),
-             ('phase_a', 32, 32): n_steps[0],
              ('phase_b', 32, 32): n_steps[1]}
     for key, n in loops.items():
         assert counters['step_loop.steps'][key] - before['step_loop.steps'].get(key, 0) == n, key
         assert counters['step_loop.replays'][key] - before['step_loop.replays'].get(key, 0) == n // 32 - 1, key
         assert counters['step_loop.captures'][key] - before['step_loop.captures'].get(key, 0) == 1, key
+    key = ('phase_a', 32, 32)
+    assert counters['step_loop.steps'][key] - before['step_loop.steps'].get(key, 0) == n_steps[0]
+    assert counters['step_loop.captures'].get(key, 0) == before['step_loop.captures'].get(key, 0)
+    key = ('phase_a', 32, n_steps[0])
+    assert counters['rk4_kernel.launches'][key] - before['rk4_kernel.launches'].get(key, 0) == 1
+    assert counters['rk4_kernel.fallbacks'] == before['rk4_kernel.fallbacks']
     assert counters['step_loop.capture_s'] > before['step_loop.capture_s']
     cuda = torch.autograd.DeviceType.CUDA
     events = list(prof.profiler.kineto_results.events())
-    kernels = [(e.start_ns(), e.end_ns()) for e in events if e.device_type() == cuda]
-    for name in ('cosmoprimo.thermodynamics', 'cosmoprimo.perturbations.phase_a', 'cosmoprimo.perturbations.phase_b'):
+    kernels = [(e.start_ns(), e.end_ns(), e.name()) for e in events if e.device_type() == cuda]
+    for name, least in (('cosmoprimo.thermodynamics', 1000), ('cosmoprimo.perturbations.phase_a', 1),
+                        ('cosmoprimo.perturbations.phase_b', 1000)):
         (start, end), = [(e.start_ns(), e.end_ns()) for e in events if e.name() == name and e.device_type() != cuda]
-        inside = [(s, e) for s, e in kernels if start <= s <= end]
-        assert len(inside) > 1000, name
-        assert max(e for _, e in inside) <= end + 100_000, name
+        inside = [(s, e, n) for s, e, n in kernels if start <= s <= end]
+        assert len(inside) >= least, name
+        assert max(e for _, e, _ in inside) <= end + 100_000, name
+        if name.endswith('phase_a'):
+            rk4 = [(s - start, e - start) for s, e, n in kernels if 'rk4_phase_a_kernel' in n]
+            assert sum('rk4_phase_a_kernel' in n for _, _, n in inside) == 1, (
+                f'the kernel from the span\'s start (ns) {rk4}, the span {end - start} ns, inside it '
+                f'{[(s - start, n[:60]) for s, _, n in inside]}')
+
+
+# The phase-A kernel (csrc/rk4_phase_a.cu, ops/rk4_kernel.py): the kernel
+# path against the PyTorch graph path on the card, at the native_pk cell's
+# shapes and budget. Bar 1e-9 of each row's largest |value|: the two paths
+# run the same formulas in float64 but round in other places (the kernel
+# fuses multiply-adds; the reductions over the momentum bins add in another
+# order), and the superhorizon modes amplify rounding (the PyTorch path reads
+# 1.9e-10 to 3.7e-10 card against CPU at the lowest k).
+
+RK4_BAR = 1e-9
+RK4_MASSES = (0.0, 1e-4, 1e-3, 6e-3, 0.06, 0.6)   # eV: the box's corners, then uniform in [0, 0.6]
+
+
+@pytest.fixture(scope='module')
+def rk4_case():
+    """256 rows of native_pk's box (the corner masses first; row 6 open,
+    Omega_k = 0.01, row 7 closed, Omega_k = -0.05), nk = 256 to 0.9 h/Mpc
+    (from 1e-3, above the closed row's curvature scale), the emulator's 30
+    z, the cell's budget steps_for_kmax(0.9): phase A through the kernel
+    and through the PyTorch graph path on the same run, linear_pk both
+    ways, and the counters' change over the kernel's phase A (``direct``)
+    and over the kernel's linear_pk (``change``)."""
+    import copy
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device and nvcc: the phase-A kernel runs only there')
+    from cosmoprimo_tpu_torch import Cosmology
+    from cosmoprimo_tpu_torch.boltzmann import compute_thermodynamics, perturbations as P
+    from cosmoprimo_tpu_torch.ops import rk4_kernel
+    dev, B = torch.device('cuda'), 256
+    rng = np.random.default_rng(21)
+
+    def draw(lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, B)).to(dev)
+
+    masses = draw(0.0, 0.6)
+    masses[:len(RK4_MASSES)] = torch.tensor(RK4_MASSES, dtype=torch.float64)
+    omk = torch.zeros(B, dtype=torch.float64, device=dev)
+    omk[6], omk[7] = 0.01, -0.05
+    cosmo = Cosmology(engine='native', logA=draw(2.8, 3.3), n_s=draw(0.88, 1.06), h=draw(0.55, 0.82),
+                      omega_b=draw(0.019, 0.026), omega_cdm=draw(0.08, 0.2), m_ncdm=[masses], Omega_k=omk, device=dev)
+    params = cosmo.engine._perturbation_params()
+    th = compute_thermodynamics(cosmo['omega_b'], cosmo['h'], cosmo['T_cmb'], cosmo.get_background().efunc,
+                                tau_reio=cosmo['tau_reio'], N_eff=cosmo['N_eff'])
+    k_h, z, n_steps = np.geomspace(1e-3, 0.9, 256), list(np.linspace(0.0, np.sqrt(10.0), 30) ** 2), P.steps_for_kmax(0.9)
+    run = P._setup(params, th, torch.from_numpy(k_h).to(dev)[None] * params['h'][:, None], z, n_steps)
+    args = (run['y0'], run['eta_A'], run['tabs'], run['lanes'], True, 'phase_a')
+
+    def changed(before, names=('rk4_kernel.launches', 'rk4_kernel.fallbacks', 'step_loop.steps',
+                               'step_loop.captures')):
+        return {name: {key: n - before[name].get(key, 0) for key, n in counters[name].items()
+                       if n != before[name].get(key, 0)} for name in names}
+
+    before = copy.deepcopy(counters)
+    out = {True: P._rk4_a(*args, harvest_eta=run['eta_t'])[:2]}
+    direct = changed(before, ('rk4_kernel.launches', 'rk4_kernel.fallbacks'))
+    out[False] = P._rk4_loop(P.deriv_full, P._coefs_a, P._project_a, *args,
+                             harvest=(run['eta_t'], P._rows_a(run['lanes'].ns)))[:2]
+    before = copy.deepcopy(counters)
+    pk = {True: P.linear_pk(params, th, k_h, z, n_steps=n_steps)}
+    torch.cuda.synchronize()
+    change = changed(before)
+    with pytest.MonkeyPatch.context() as patch:   # every phase A on the PyTorch graph loop
+        patch.setattr(rk4_kernel, 'fallback_reason', lambda *args: 'graph path')
+        pk[False] = P.linear_pk(params, th, k_h, z, n_steps=n_steps)
+    return {'run': run, 'phase_a': out, 'pk': pk, 'direct': direct, 'change': change, 'n_steps': n_steps,
+            'lanes': B * 256}
+
+
+def rows_err(got, ref):
+    """The worst over rows (every axis but the last, the modes) of
+    max|got - ref| / max|ref|; a row that is 0 in the reference must be 0."""
+    scale = ref.abs().amax(dim=-1)
+    diff = (got - ref).abs().amax(dim=-1)
+    assert bool((diff[scale == 0] == 0).all())
+    return (diff[scale > 0] / scale[scale > 0]).max().item()
+
+
+@pytest.mark.cuda
+def test_rk4_kernel_covers_the_switches(rk4_case):
+    """The lanes cover tight coupling (at every lane's start), the Poisson
+    pin (off at the start, superhorizon; on at the end of some lanes) and
+    the streaming switch (phase A ends on k eta = 45, and streams before its
+    end where that comes before z = 900)."""
+    from cosmoprimo_tpu_torch.boltzmann import perturbations as P
+    run = rk4_case['run']
+    lanes, eta = run['lanes'], run['eta_A']
+    first = P._coefs_a(P._fetch(run['tabs'], eta[0], lanes), lanes, eta[0])
+    last = P._coefs_a(P._fetch(run['tabs'], eta[-1], lanes), lanes, eta[-1])
+    assert bool(first['tca'].all())
+    assert not bool(first['pin'].any()) and bool(last['pin'].any())
+    assert bool((eta[-1] == lanes.eta_rsa).any())
+    assert bool((eta[-2] > lanes.eta_rsa).any())
+
+
+@pytest.mark.cuda
+def test_rk4_kernel_against_the_graph_path(rk4_case):
+    """Phase A's end state (per state row and cosmology) and harvest (per
+    z, row and cosmology) from the kernel against the PyTorch graph path,
+    light-neutrino, open and closed rows included."""
+    (y, h), (y_ref, h_ref) = rk4_case['phase_a'][True], rk4_case['phase_a'][False]
+    assert bool(torch.isfinite(y_ref).all()) and bool(torch.isfinite(h_ref).all())
+    assert rows_err(y, y_ref) <= RK4_BAR
+    assert rows_err(h, h_ref) <= RK4_BAR
+
+
+@pytest.mark.cuda
+def test_rk4_kernel_linear_pk_against_the_graph_path(rk4_case):
+    """pk_m and pk_cb of linear_pk, per cosmology over (z, k), the kernel's
+    phase A against the PyTorch graph path's."""
+    got, ref = rk4_case['pk'][True], rk4_case['pk'][False]
+    for name in ('pk_m', 'pk_cb'):
+        assert bool(torch.isfinite(ref[name]).all()), name
+        assert rows_err(got[name].flatten(1), ref[name].flatten(1)) <= RK4_BAR, name
+
+
+@pytest.mark.cuda
+def test_rk4_kernel_counts(rk4_case):
+    """Phase A through the dispatch, and a linear_pk, on the card each
+    launch the kernel once for phase A; linear_pk counts phase A's steps as
+    the PyTorch loop would and captures no phase-A graph; nothing falls
+    back, so the comparisons above hold the kernel to the graph path."""
+    change, lanes, n = rk4_case['change'], rk4_case['lanes'], rk4_case['n_steps'][0]
+    assert rk4_case['direct'] == {'rk4_kernel.launches': {('phase_a', lanes, n): 1}, 'rk4_kernel.fallbacks': {}}
+    assert change['rk4_kernel.launches'] == {('phase_a', lanes, n): 1}
+    assert change['rk4_kernel.fallbacks'] == {}
+    assert change['step_loop.steps'][('phase_a', lanes, 32)] == n
+    assert not any(key[0] == 'phase_a' for key in change['step_loop.captures'])

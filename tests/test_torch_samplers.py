@@ -15,8 +15,10 @@ the JAX package's, on the CPU.
 - ``get_calculator`` on eisenstein_hu (every section) and the EH99
   variants engine (fourier): the same names and shapes, each row against
   the JAX calculator at that point within 1e-10 of its max (measured
-  <= 1.1e-15).
+  <= 1.1e-15); a call leaves no reference cycle that holds a tensor.
 """
+
+import gc
 
 import numpy as np
 import pytest
@@ -231,3 +233,26 @@ def test_get_calculator_against_jax():
     with pytest.raises(CalculatorComputationError):
         get_calculator(Cosmology(engine='eisenstein_hu', device='cpu'), section=['background'])(
             omega_b=torch.tensor([0.02, 0.022], dtype=torch.float64), Omega_b=torch.tensor([0.04, 0.05], dtype=torch.float64))
+
+
+def test_get_calculator_leaves_no_cycle():
+    """A call's sections and engine are freed when the call returns, not at
+    the collector's next full pass: with the collector off, a call leaves
+    no garbage in cycles that holds a tensor (each row of a sampling loop
+    on the card would otherwise keep its tables until then)."""
+    calculator = get_calculator(Cosmology(engine='eisenstein_hu', device='cpu'))
+    h = torch.tensor([0.65, 0.72], dtype=torch.float64)
+    gc.collect()
+    gc.disable()
+    try:
+        got = calculator(h=h)
+        del got
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        held = [type(o).__name__ for o in gc.garbage if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+        gc.collect()
+    assert held == []
